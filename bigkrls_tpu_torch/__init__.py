@@ -1,11 +1,13 @@
 """bigkrls_tpu_torch — Kernel Regularized Least Squares in PyTorch on CUDA.
 
-The port of ``bigkrls_tpu`` (JAX) to PyTorch, with the Gaussian kernel
-builder as a hand-written CUDA kernel for Hopper (``csrc/``). It runs the
-single-device dense fit: ``fit``/``bigKRLS`` on one explicit device
-(``device="cuda"`` by default), ``predict``, ``summary`` and
-``check_data``. ``convert.model_from_reference`` turns a fitted JAX model
-into this package's model. The rest of the JAX package's API is listed in
+The port of ``bigkrls_tpu`` (JAX) to PyTorch, with the dense Gaussian
+kernel and the kernel-free product K(X)·V as hand-written CUDA kernels
+for Hopper (``csrc/``). It runs the single-device fit, dense and
+streaming (kernel-free, chosen by itself from N = 32768 with ``neig <
+N``): ``fit``/``bigKRLS`` on one explicit device (``device="cuda"`` by
+default), ``predict``, ``summary`` and ``check_data``.
+``convert.model_from_reference`` turns a fitted JAX model into this
+package's model. The rest of the JAX package's API is listed in
 ROADMAP.md, queue 1, in the order it is ported.
 
 ``enable_x64()`` makes float64 the default fit dtype (parity mode, as the

@@ -7,6 +7,9 @@
 //   g_ij = sum_p a_ip b_jp                              (IEEE fp32 FMA chain, p ascending)
 //   d2   = max(r_i + r_j - 2 g_ij, 0),  out = expf(-d2 / sigma)
 //
+// The per-entry arithmetic lives in gauss_entry.cuh, shared with
+// kernel_matmul.cu.
+//
 // No padding: P and the row counts are arbitrary and the ragged tile edges are
 // masked. No TF32 and no tensor cores: the rank-P cancellation at r ~ P lands
 // inside exp(), so every product and sum is a true fp32 FMA.
@@ -28,24 +31,16 @@
 //
 // Output offsets are 64-bit: N^2 passes 2^31 at N ~ 46k.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gauss_entry.cuh"
 
 namespace {
+
+using bigkrls::gauss_entry;
+using bigkrls::gram_fma;
 
 constexpr int TILE = 64;      // output tile edge
 constexpr int KSLICE = 16;    // width of the P slice staged per step
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-
-__global__ void row_sqnorm_kernel(const float* __restrict__ X, int64_t rows, int64_t P,
-                                  float* __restrict__ r) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const float* x = X + i * P;
-  float acc = 0.0f;
-  for (int64_t p = 0; p < P; ++p) acc = __fmaf_rn(x[p], x[p], acc);
-  r[i] = acc;
-}
 
 __global__ void __launch_bounds__(THREADS)
 gauss_tile_kernel(const float* __restrict__ A, const float* __restrict__ B,
@@ -93,7 +88,7 @@ gauss_tile_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) g[i][j] = __fmaf_rn(a[i], b[j], g[i][j]);
+        for (int j = 0; j < 4; ++j) g[i][j] = gram_fma(a[i], b[j], g[i][j]);
     }
     __syncthreads();
   }
@@ -107,9 +102,7 @@ gauss_tile_kernel(const float* __restrict__ A, const float* __restrict__ B,
     for (int j = 0; j < 4; ++j) {
       const int64_t col = n0 + tx + 16 * j;
       if (col >= N) continue;
-      const float s = __fadd_rn(r_row, rb[col]);
-      const float d2 = fmaxf(__fmaf_rn(-2.0f, g[i][j], s), 0.0f);
-      float v = expf(-d2 / sigma);
+      float v = gauss_entry(g[i][j], r_row, rb[col], sigma);
       if (symmetric_diag && row == col) v = 1.0f;
       out[row * N + col] = v;
     }
@@ -126,9 +119,8 @@ extern "C" int gauss_tile_f32(const float* A, const float* B, float* ra, float* 
                               int64_t M, int64_t N, int64_t P, float sigma, float* out,
                               int symmetric_diag, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = 256;
-  row_sqnorm_kernel<<<(unsigned)((M + nb - 1) / nb), nb, 0, s>>>(A, M, P, ra);
-  if (rb != ra) row_sqnorm_kernel<<<(unsigned)((N + nb - 1) / nb), nb, 0, s>>>(B, N, P, rb);
+  bigkrls::launch_row_sqnorm(A, M, P, ra, s);
+  if (rb != ra) bigkrls::launch_row_sqnorm(B, N, P, rb, s);
   dim3 grid((unsigned)((N + TILE - 1) / TILE), (unsigned)((M + TILE - 1) / TILE));
   gauss_tile_kernel<<<grid, THREADS, 0, s>>>(A, B, ra, rb, M, N, P, sigma, out,
                                              symmetric_diag);

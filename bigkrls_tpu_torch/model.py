@@ -9,13 +9,18 @@ The reference's ``bigKRLS()`` pipeline (``R/bigKRLS.R:97-516``):
   5. pointwise marginal effects + AME variances       (ops/effects.py)
 
 on one device, named by ``device=`` (default ``"cuda"``; nothing probes
-for a card). The single-device dense routes run: adaptive, fused and
-stepwise (``routing.select_route``). A mesh, a checkpoint directory and
-the streaming route raise ``NotImplementedError`` naming the ROADMAP item
-that ports them; none of them silently runs the dense path instead.
+for a card). All four single-device routes run (``routing.select_route``):
+adaptive, fused and stepwise on a stored kernel, and the streaming
+(kernel-free) route, which never builds K: every product K·V is recomputed
+tile by tile from X (``ops/matvec.py``) and the eigensystem comes from
+``ops/eig.eigensystem_streaming``. It is chosen by itself from
+``n >= streaming_threshold`` (32768) with ``neig < n``. A mesh and a
+checkpoint directory raise ``NotImplementedError`` naming the ROADMAP item
+that ports them; neither silently runs a single-device fit instead.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, Optional, Sequence
 
@@ -24,8 +29,9 @@ import torch
 
 from .lambda_search import lambda_search, lambda_search_solve
 from .ops.adaptive import postkernel_adaptive
-from .ops.effects import derivatives_all
-from .ops.eig import _NAN_EIG_MSG, eigensystem
+from .ops import matvec
+from .ops.effects import derivatives_all, derivatives_streaming
+from .ops.eig import _NAN_EIG_MSG, eigensystem, eigensystem_streaming
 from .ops.fused import postkernel_device
 from .ops.kernels import kernel_matrix
 from .ops.solve import solve_for_c
@@ -103,6 +109,8 @@ def _fit_impl(
     checkpoint_dir: Optional[str] = None,
     streaming: Optional[bool] = None,
     streaming_threshold: int = 32768,
+    eig_iters: Optional[int] = None,
+    fast_eig_power: Optional[bool] = None,
     ncores: Optional[int] = None,
     instructions: bool = False,
     log: Callable[[str], None] = print,
@@ -170,11 +178,20 @@ def _fit_impl(
 
     if streaming is None:
         streaming = n >= streaming_threshold and neig < n
-    if streaming:
-        raise NotImplementedError(
-            "the streaming (kernel-free) fit is not ported yet (ROADMAP "
-            "queue 1, items 11-13); it is chosen for neig < n at "
-            f"n >= streaming_threshold={streaming_threshold}")
+    if eig_iters is None:
+        # precision-matched Krylov depth: the deeper basis only pays at f64
+        eig_iters = 8 if dtype == torch.float64 else 6
+    if streaming and neig >= n:
+        raise ValueError(
+            "streaming=True requires a truncated eigensystem: pass neig < n "
+            "(the streaming path never materializes the N x N kernel, so a "
+            "full decomposition is not available).")
+    if fast_eig_power is None:
+        # reduced-precision power products exactly where the flow's
+        # Rayleigh-Ritz recomputes K.B anyway (eig._resolve_fast_power)
+        fast_eig_power = "auto"
+    # the kernel-free product, for every consumer outside the eigensolver
+    km = functools.partial(matvec.kernel_matmul, impl=kernel_impl)
 
     # binary (first-difference) columns: exactly two unique values
     x_is_binary = np.array(
@@ -192,9 +209,15 @@ def _fit_impl(
     x_init_sds = _to_numpy(x_sds)
 
     # ---- step 1: kernel ----
-    if noisy:
-        log(f"Step 1/5: Kernel (t+{time.time() - t0:.1f}s)")
-    K = kernel_matrix(X_std, sigma, kernel_impl)
+    if streaming:
+        K = None
+        if noisy:
+            log("Step 1/5: kernel will be streamed tile-wise "
+                "(never materialized)")
+    else:
+        if noisy:
+            log(f"Step 1/5: Kernel (t+{time.time() - t0:.1f}s)")
+        K = kernel_matrix(X_std, sigma, kernel_impl)
     timer.mark("kernel")
 
     # ---- steps 2-4 by route ----
@@ -205,8 +228,8 @@ def _fit_impl(
     fused_out = None
     route_kwargs = dict(
         n=n, neig=neig, eigtrunc=eigtrunc, eig_method=eig_method,
-        explicit_lambda=lambda_ is not None, explicit_L=L is not None,
-        explicit_U=U is not None)
+        streaming=streaming, explicit_lambda=lambda_ is not None,
+        explicit_L=L is not None, explicit_U=U is not None)
     route = select_route(**route_kwargs)
     adaptive_attempted = route.route == "adaptive"
     if adaptive_attempted:
@@ -248,8 +271,21 @@ def _fit_impl(
         if noisy:
             log(f"Step 2/5: Spectral decomposition "
                 f"(t+{time.time() - t0:.1f}s)")
-        eig = eigensystem(K, neig=neig, eigtrunc=eigtrunc, method=eig_method)
-        eig_path = f"stepwise:{eig_method}"
+        if streaming:
+            progress = None
+            if noisy:
+                progress = lambda d, t: log(
+                    f"  subspace power iteration {d}/{t} "
+                    f"(t+{time.time() - t0:.1f}s)")
+            eig = eigensystem_streaming(X_std, sigma, neig=neig,
+                                        eigtrunc=eigtrunc, iters=eig_iters,
+                                        fast_power=fast_eig_power,
+                                        progress=progress, impl=kernel_impl)
+            eig_path = "streaming-krylov"
+        else:
+            eig = eigensystem(K, neig=neig, eigtrunc=eigtrunc,
+                              method=eig_method)
+            eig_path = f"stepwise:{eig_method}"
     timer.mark("eigendecomposition")
 
     # ---- step 3: λ search ----
@@ -283,15 +319,28 @@ def _fit_impl(
         Le, coeffs = fused_out[1], fused_out[2]
     else:
         Le, coeffs = solve_for_c(eig, y_std, lambda_)
-    yfitted_std = K @ coeffs
-    resid = y_std - yfitted_std
-    sigmasq = float(torch.sum(resid * resid)) / n   # ref :294
-    spectrum = None
-    if vcov_est:
-        if adaptive_spec is not None:
-            spectrum = sigmasq * adaptive_spec
+
+    def residual_variance(yhat_std):
+        resid = y_std - yhat_std
+        return float(torch.sum(resid * resid)) / n   # ref :294
+
+    # On the kernel-free route every product pays a full rebuild of K, and
+    # the derivatives' stacked right-hand side already carries c as its
+    # first column: ŷ, and with it σ̂², come out of that one product in
+    # step 5, not out of a width-1 product of their own.
+    yhat_from_derivatives = streaming and derivative
+    yfitted_std = sigmasq = spectrum = None
+    if not yhat_from_derivatives:
+        if streaming:
+            yfitted_std = km(X_std, coeffs[:, None].contiguous(), sigma)[:, 0]
         else:
-            spectrum = sigmasq / (eig.values + lambda_) ** 2
+            yfitted_std = K @ coeffs
+        sigmasq = residual_variance(yfitted_std)
+        if vcov_est:
+            if adaptive_spec is not None:
+                spectrum = sigmasq * adaptive_spec
+            else:
+                spectrum = sigmasq / (eig.values + lambda_) ** 2
     timer.mark("coefficients")
 
     # ---- step 5: marginal effects ----
@@ -306,8 +355,21 @@ def _fit_impl(
         bmask = torch.as_tensor(x_is_binary[cols], device=device)
         z0 = torch.amin(X_est, dim=0)
         z1 = torch.amax(X_est, dim=0)
-        dres = derivatives_all(X_est, K, coeffs, eig.vectors, spectrum,
-                               sigma, bmask, z0, z1)
+        if yhat_from_derivatives:
+            # the AME variances come back under the unscaled filter
+            # 1/(λ+λ*)², since σ̂² needs this product's ŷ; it is applied after
+            filt = 1.0 / (eig.values + lambda_) ** 2
+            dres = derivatives_streaming(X_std, cols, coeffs, eig.vectors,
+                                         filt, sigma, bmask, z0, z1,
+                                         matmul=km)
+            yfitted_std = dres.yfitted_std
+            sigmasq = residual_variance(yfitted_std)
+            spectrum = sigmasq * filt
+            var_avg_std = sigmasq * dres.var_avgderiv
+        else:
+            dres = derivatives_all(X_est, K, coeffs, eig.vectors, spectrum,
+                                   sigma, bmask, z0, z1)
+            var_avg_std = dres.var_avgderiv
         deriv_std_np = _to_numpy(dres.derivatives)
 
         # R2AME on standardized X vs original y (ref :390-392)
@@ -321,7 +383,7 @@ def _fit_impl(
         # rescale to original units (ref :394-407)
         sd_ratio = y_init_sd / x_init_sds[cols]
         derivatives = deriv_std_np * sd_ratio[None, :]
-        varavgderiv = _to_numpy(dres.var_avgderiv) * sd_ratio ** 2
+        varavgderiv = _to_numpy(var_avg_std) * sd_ratio ** 2
         avgderiv = derivatives.mean(axis=0)
     timer.mark("derivatives")
 
@@ -388,7 +450,12 @@ def fit(y, X, **kwargs) -> KRLSModel:
     """Fit a KRLS model on one device; see ``_fit_impl`` for the
     arguments. Defaults follow the reference's ``bigKRLS()``: sigma = P,
     eigtrunc 0.001 above N = 3000, tol = N/1000, λ by golden search.
-    Matrix products run in IEEE fp32 (no TF32) throughout."""
+    ``streaming=True`` (by itself from ``streaming_threshold`` rows with
+    ``neig < n``) never builds the N×N kernel; ``eig_iters`` is its
+    Krylov depth (8 at f64, 6 at f32) and ``fast_eig_power`` forces or
+    forbids TF32 on the eigensolver's power products (default: only in
+    the flows whose Rayleigh–Ritz recomputes K·B). Every other matrix
+    product runs in IEEE fp32 (no TF32)."""
     with ieee_fp32():
         return _fit_impl(y, X, **kwargs)
 

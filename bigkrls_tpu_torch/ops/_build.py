@@ -1,12 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``bigkrls_tpu_torch/csrc/*.cu`` expose a plain C
-interface; they are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library under ``bigkrls_tpu_torch/_build/`` and loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds). The library is built at first
-use and keyed by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is reused. A failed build raises with
-``nvcc``'s own error output.
+The sources under ``bigkrls_tpu_torch/csrc/*.cu`` (and the headers
+``*.cuh`` they share) expose a plain C interface. Each is compiled by its
+own ``nvcc`` for ``sm_90a``, all started together, and the objects are
+linked into one shared library under ``bigkrls_tpu_torch/_build/``, which
+is loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+The library is built at first use and keyed by a hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused. A
+failed build raises with ``nvcc``'s own error output.
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*_ARCH, "-shared")
 
 # seconds the last build took (0.0 when the library was already built)
 last_build_seconds = 0.0
@@ -53,16 +56,31 @@ def _sources():
 
 
 def _digest(srcs) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for s in [*srcs, *sorted(SRC_DIR.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands side by side; return their combined output or
+    raise with the first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile the sources if no library for their hash exists; return
-    the library's path."""
+    the library's path. Each source is compiled by its own ``nvcc``, all
+    started together, and the objects are linked into one library."""
     global last_build_seconds, last_build_log
     srcs = _sources()
     lib = BUILD_DIR / f"libbigkrls_kernels_{_digest(srcs)}.so"
@@ -70,18 +88,22 @@ def build() -> Path:
         last_build_seconds = 0.0
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    tmp = BUILD_DIR / f"{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    try:
+        log = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
-    last_build_log = proc.stdout + proc.stderr
+    last_build_log = log
     return lib
 
 
@@ -93,4 +115,8 @@ def library() -> ctypes.CDLL:
     lib.gauss_tile_f32.argtypes = [p, p, p, p, i64, i64, i64, ctypes.c_float,
                                    p, ctypes.c_int, p]
     lib.gauss_tile_f32.restype = ctypes.c_int
+    lib.kernel_matmul_f32.argtypes = [p, p, p, p, p, i64, i64, i64,
+                                      ctypes.c_float, ctypes.c_float,
+                                      ctypes.c_int, ctypes.c_int, p]
+    lib.kernel_matmul_f32.restype = ctypes.c_int
     return lib

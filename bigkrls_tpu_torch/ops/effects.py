@@ -1,14 +1,15 @@
 """Pointwise marginal effects and AME variances, all columns at once.
 
-Port of the dense half of ``bigkrls_tpu/ops/effects.py`` (its docstring
-derives the identities). Everything the derivative step needs from the
+Port of ``bigkrls_tpu/ops/effects.py`` (its docstring derives the
+identities). Everything the derivative step needs from the
 kernel is K @ V for the stacked right-hand side
 
     V = [ c | 1 | X∘c | X | B∘c | B ]        (N, 2+4P)
 
 (B = per-column max-level indicators for the binary first differences),
 one multi-RHS product. On the dense path that product is a plain
-``torch.matmul``, as the JAX package leaves it to XLA.
+``torch.matmul``, as the JAX package leaves it to XLA; on the kernel-free
+path it is one call of ``ops/matvec.kernel_matmul``.
 """
 from __future__ import annotations
 
@@ -87,4 +88,19 @@ def derivatives_all(X_std, K, coeffs, Q, spectrum, sigma: float, binary_mask,
     delta, B = _binary_geometry(X_std, binary_mask, z0, z1)
     Y = K @ _rhs_stack(X_std, coeffs, B)
     return _from_products(Y, X_std, coeffs, Q, spectrum, float(sigma),
+                          binary_mask, delta, B)
+
+
+def derivatives_streaming(X_full, cols, coeffs, Q, spectrum, sigma: float,
+                          binary_mask, z0, z1, matmul) -> DerivativesResult:
+    """Kernel-free path: the same assembly, with the product computed by
+    ``matmul(X, V, sigma)`` (``ops/matvec.kernel_matmul``), which rebuilds
+    K tile by tile from the full standardized ``X_full`` (N, P). ``cols``
+    are the estimated columns; ``binary_mask``, ``z0`` and ``z1`` refer to
+    them. The result's ``yfitted_std`` is the product's first column,
+    K·c, so the fit needs no separate product for ŷ."""
+    X_sel = X_full[:, list(cols)]
+    delta, B = _binary_geometry(X_sel, binary_mask, z0, z1)
+    Y = matmul(X_full, _rhs_stack(X_sel, coeffs, B), sigma)
+    return _from_products(Y, X_sel, coeffs, Q, spectrum, float(sigma),
                           binary_mask, delta, B)

@@ -1,8 +1,11 @@
-"""Symmetric eigendecomposition of the kernel: the dense half.
+"""Symmetric eigendecomposition of the kernel, dense and kernel-free.
 
 Port of the single-device part of ``bigkrls_tpu/ops/eig.py``: the full
 ``eigh``, randomized block-Krylov iteration, Lanczos, the lastkeeper rule
-and ``eigensystem``. The streaming solvers wait (ROADMAP queue 1, item 12).
+and ``eigensystem`` for a stored kernel; and ``eigensystem_streaming``,
+which needs only products K·V (``ops/matvec.py``) and never builds K, in
+its three flows (progressive block-Krylov, stacked blocks + fat QR,
+constant-memory Chebyshev).
 
 Conventions copied from the reference: eigenvalues **descending**,
 eigenvectors **negated**, and ``lastkeeper`` applied to the vectors only.
@@ -14,12 +17,15 @@ which torch cannot reproduce. The iterative solvers take an optional
 """
 from __future__ import annotations
 
+import functools
+import logging
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..types import Eigensystem
+from . import matvec
 
 # above this many rows an f32 block is orthonormalized by CholeskyQR²
 CHOLQR_MIN_ROWS = 16384
@@ -84,7 +90,7 @@ def _ritz_topk(B, KB, k: int):
     T = B.T @ KB
     T = 0.5 * (T + T.T)
     evals, S = torch.linalg.eigh(T)          # ascending
-    return evals.flip(0)[:k], (B @ S.flip(1))[:, :k]
+    return evals.flip(0)[:k], B @ S.flip(1)[:, :k]
 
 
 def _krylov_geometry(n: int, k: int, iters: int,
@@ -218,6 +224,322 @@ def eigensystem(K, neig: Optional[int] = None, eigtrunc: float = 0.0,
     else:
         raise ValueError(f"unknown eig method: {method!r}")
 
+    vals_np = vals.detach().cpu().numpy()
+    if np.any(np.isnan(vals_np)):
+        raise ValueError(_NAN_EIG_MSG)
+    lastkeeper = lastkeeper_from_values(vals_np, eigtrunc)
+    return Eigensystem(values_full=vals, vectors=vecs[:, :lastkeeper],
+                       lastkeeper=lastkeeper)
+
+
+# ---------------------------------------------------------------------------
+# kernel-free (streaming) solvers: only products K·V, never K
+# ---------------------------------------------------------------------------
+
+_LOG = logging.getLogger("bigkrls_tpu_torch")
+
+
+def _orth(W):
+    """``_block_orth`` with a contiguous result (the product kernel takes
+    contiguous blocks; QR and triangular solves may return strided ones)."""
+    return _block_orth(W).contiguous()
+
+
+def _cheb_degrees(nprod: int):
+    """Split a product budget into Chebyshev application degrees: first
+    degree 2 (its cutoff comes from a random subspace's Ritz values), then
+    degree 3 while the budget lasts; a degree-1 remainder is a shifted
+    power step."""
+    degrees = []
+    budget = int(nprod)
+    first = True
+    while budget > 0:
+        d = min(2 if first else 3, budget)
+        degrees.append(d)
+        budget -= d
+        first = False
+    return degrees
+
+
+def _block_scale(U):
+    """Scalar scale of a recurrence block (max-abs: overflow-proof at f32
+    even when the filter has amplified the block by ~1e8). A 0-dim tensor
+    on U's device: no host read."""
+    return torch.clamp_min(torch.max(torch.abs(U)), 1e-30)
+
+
+def _cheb_app_start(X, V, c_prev: float, sigma, matmul):
+    """First product of a Chebyshev application: ``W = K·V`` plus the free
+    cutoff update. The q×q Gram ``VᵀW`` is the Rayleigh quotient of the
+    orthonormal block; its smallest eigenvalue θ_min ≤ λ_q (Cauchy
+    interlacing), so ``c = max(c_prev, θ_min)`` never damps a wanted
+    direction. Returns the first two scalar-rescaled recurrence blocks
+    ``T₀(K̃)V = V`` and ``T₁(K̃)V`` for ``K̃ = (2K − cI)/c``, the relative
+    scale and the cutoff. The cutoff is read to the host (one float per
+    application): the product kernel takes its scale as a host number."""
+    W = matmul(X, V, sigma)
+    S = V.T @ W
+    S = 0.5 * (S + S.T)
+    theta = torch.linalg.eigvalsh(S)             # ascending
+    lo, hi = theta[[0, -1]].tolist()
+    c = max(max(c_prev, lo), 1e-6 * hi)
+    Y = W.mul(2.0 / c).sub_(V)
+    tau = _block_scale(Y)
+    return V, Y.div_(tau), 1.0 / tau, c
+
+
+def _cheb_step(X, Yp, Yc, r, c: float, sigma, matmul):
+    """One Chebyshev three-term recurrence step (one K·V product):
+    ``Y_{j+1} = 2·K̃·Y_j − Y_{j−1}``, carried in scalar-rescaled form (``r``
+    is the previous block's relative scale) so degree-3 filters cannot
+    overflow f32. Scalar rescaling leaves the final block's column span
+    unchanged. The generic form, for any ``matmul(X, V, sigma)`` callable;
+    the package's own product takes :func:`_cheb_step_fused`."""
+    Z = matmul(X, Yc, sigma)
+    U = (4.0 / c) * Z - 2.0 * Yc - r * Yp
+    tau = _block_scale(U)
+    return Yc, U / tau, 1.0 / tau
+
+
+def _cheb_step_fused(X, Yp, Yc, r, c: float, sigma, matmul):
+    """:func:`_cheb_step` with the recurrence folded into the product's
+    epilogue: ``U = (K·Yc + init)·(4/c)`` with ``init = −(c/4)(2Yc + rYp)``.
+    ``init`` is built in place in ``Yp``'s storage and the product writes
+    ``U`` over it, so no separate Z or U block exists and the step holds
+    the two blocks a plain power step holds. ``Yp`` is consumed: the
+    caller must not use it afterwards."""
+    init = Yp.mul_(r).add_(Yc, alpha=2.0).mul_(-(c / 4.0))
+    U = matmul(X, Yc, sigma, init=init, out_scale=4.0 / c, out=init)
+    tau = _block_scale(U)
+    return Yc, U.div_(tau), 1.0 / tau
+
+
+def _power_chunk_blocks(X, V, sigma, steps: int, matmul):
+    """``steps`` plain power iterations returning every intermediate block
+    (stacked column-wise): the small-n flow, whose caller runs one fat
+    reduced QR over the stacked basis."""
+    blocks = []
+    for _ in range(steps):
+        V = _orth(matmul(X, V, sigma))
+        blocks.append(V)
+    return V, torch.cat(blocks, dim=1)
+
+
+def _fatqr_ritz_streaming(X, B, sigma, k: int, matmul):
+    """Rayleigh–Ritz after one fat reduced QR of the stacked blocks; K·Q
+    recomputed with the full-precision ``matmul``."""
+    Q = _householder_q(B).contiguous()
+    return _ritz_topk(Q, matmul(X, Q, sigma), k)
+
+
+def _krylov_chunk(X, V, B, KB, g: int, sigma, steps: int, matmul,
+                  store_kb: bool):
+    """``steps`` kernel-free block-Krylov steps (K·V product, block DGKS,
+    QR). ``B`` is the preallocated n×((d+1)·q) basis holding orthonormal
+    blocks V_0..V_g; each step stores K·V_g into ``KB`` (when
+    ``store_kb``) and appends the next block to ``B``. Both are updated in
+    place. DGKS projects against the filled blocks only (the unfilled ones
+    are zero and would contribute exactly nothing)."""
+    q = V.shape[1]
+    for _ in range(steps):
+        W = matmul(X, V, sigma)                  # K @ V_g
+        if store_kb:
+            KB[:, g * q:(g + 1) * q] = W
+        W = _dgks(B[:, :(g + 1) * q], W)
+        V = _orth(W)
+        g += 1
+        B[:, g * q:(g + 1) * q] = V
+    return V, B, KB, g
+
+
+def _krylov_ritz_streaming(X, B, KB, V_last, sigma, k: int, matmul,
+                           reuse_kb: bool):
+    """Rayleigh–Ritz for the streaming flows. With ``reuse_kb`` the power
+    products already filled K·B at full precision and only the last
+    block's product is computed here; otherwise the whole K·B is
+    recomputed with the full-precision ``matmul``, so Ritz quality never
+    inherits reduced-precision noise."""
+    if reuse_kb:
+        q = V_last.shape[1]
+        KB[:, B.shape[1] - q:] = matmul(X, V_last, sigma)
+    else:
+        KB = matmul(X, B, sigma)
+    return _ritz_topk(B, KB, k)
+
+
+def _resolve_fast_power(fast_power, krylov: bool, progressive: bool) -> bool:
+    """Resolve ``fast_power="auto"`` by the flow's product structure: the
+    progressive block-Krylov flow reuses its power products as K·B for
+    Rayleigh–Ritz, so they must be full precision (fast products would
+    force a full-width recompute); the constant-memory and stacked flows
+    recompute K·B anyway, so fast power products cost nothing extra."""
+    if fast_power != "auto":
+        return bool(fast_power)
+    return not (krylov and progressive)
+
+
+def _auto_krylov(n: int, q: int, iters: int, itemsize: int,
+                 budget: Optional[int] = None, fraction: float = 0.6,
+                 device=None) -> bool:
+    """Pick block-Krylov vs the constant-memory flow by memory fit.
+
+    The progressive basis costs ~2·N·(iters+1)·q elements (B plus the
+    recorded K·B); above ``fraction`` of the device's memory
+    (``utils.memory.device_memory_budget``) the solver takes the
+    constant-memory flow and logs why."""
+    basis_bytes = 2 * n * (iters + 1) * q * itemsize
+    if budget is None:
+        from ..utils.memory import device_memory_budget
+        budget = device_memory_budget(device)
+    ok = basis_bytes <= fraction * budget
+    if not ok:
+        _LOG.warning(
+            "eigensystem_streaming: block-Krylov basis would need "
+            "%.1f GB (> %d%% of %.1f GB device memory); using the "
+            "constant-memory Chebyshev subspace iteration instead — "
+            "raise `iters` if trailing-eigenvalue accuracy matters at "
+            "this scale",
+            basis_bytes / 1024 ** 3, int(fraction * 100),
+            budget / 1024 ** 3)
+    return ok
+
+
+def eigensystem_streaming(
+    X_std,
+    sigma,
+    neig: int,
+    eigtrunc: float = 0.0,
+    iters: int = 8,
+    seed: int = 0,
+    matmul=None,
+    fast_power="auto",
+    power_matmul=None,
+    progress=None,
+    chunk: int = 4,
+    krylov: Optional[bool] = None,
+    start=None,
+    impl: str = "auto",
+) -> Eigensystem:
+    """Truncated eigensystem of the (never materialized) kernel of X_std.
+
+    Each power step is one product K·V (``ops/matvec.kernel_matmul``);
+    storage is O(N·q). Same conventions as :func:`eigensystem`
+    (descending values, negated vectors, lastkeeper applied to the vectors
+    only). ``neig`` must be < N.
+
+    ``matmul(X, V, sigma)`` is the full-precision product; by default the
+    package's own, with ``impl`` passed on to it. ``power_matmul`` serves
+    the power and Chebyshev products only; by default it is ``matmul``,
+    or, when ``fast_power`` resolves true (:func:`_resolve_fast_power`)
+    and X_std is an f32 CUDA tensor, the package's product with
+    ``fast_accum=True`` (TF32 on tile·V). The final Rayleigh–Ritz always
+    uses ``matmul``. With a caller-supplied callable, ``fast_power`` has
+    no effect and the Chebyshev flow takes the generic :func:`_cheb_step`.
+
+    ``krylov=True`` keeps every power block (progressively orthonormal)
+    and runs Rayleigh–Ritz on the whole block-Krylov basis, memory
+    O(N·q·iters); where that basis would be wider than N, the stacked
+    blocks are reduced by one fat QR. ``krylov=False`` forces the
+    constant-memory flow: Chebyshev-filtered subspace iteration, with
+    ``iters ≥ 4`` mapped to ``iters − 2`` filter products. ``None`` picks
+    by memory (:func:`_auto_krylov`).
+
+    ``start`` is the (n, q) start block before orthonormalization, q from
+    ``_krylov_geometry(n, neig, iters)``; by default :func:`start_block`
+    with ``seed``. ``progress(done, total)`` is called after every
+    ``chunk`` products, after the device has finished them."""
+    n = X_std.shape[0]
+    neig = min(int(neig), n)
+    dtype, device = X_std.dtype, X_std.device
+    q, progressive = _krylov_geometry(n, neig, iters)
+
+    if krylov is None:
+        krylov = _auto_krylov(n, q, iters, X_std.element_size(),
+                              device=device)
+    own = matmul is None and power_matmul is None
+    if matmul is None:
+        matmul = functools.partial(matvec.kernel_matmul, impl=impl)
+    if power_matmul is None:
+        power_matmul = matmul
+        if not own and fast_power is True:
+            _LOG.warning("eigensystem_streaming: fast_power=True is ignored "
+                         "for a caller-supplied matmul")
+        if own and (_resolve_fast_power(fast_power, krylov, progressive)
+                    and device.type == "cuda" and dtype == torch.float32):
+            power_matmul = functools.partial(matvec.kernel_matmul, impl=impl,
+                                             fast_accum=True)
+            _LOG.info(
+                "eigensystem_streaming: reduced-precision (TF32) power "
+                "products enabled (a flow whose Rayleigh-Ritz recomputes "
+                "K.B; Rayleigh-Ritz stays full precision)")
+
+    if start is None:
+        start = start_block(n, q, dtype, device, seed)
+    if tuple(start.shape) != (n, q):
+        raise ValueError(f"start block must be ({n}, {q}), got "
+                         f"{tuple(start.shape)}")
+    V = _orth(start.to(dtype=dtype, device=device))
+
+    def report(done, total):
+        if progress is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            progress(done, total)
+
+    if krylov and progressive:
+        reuse_kb = power_matmul is matmul
+        width = (iters + 1) * q
+        B = torch.zeros((n, width), dtype=dtype, device=device)
+        B[:, :q] = V
+        KB = (torch.zeros((n, width), dtype=dtype, device=device)
+              if reuse_kb else None)
+        g = done = 0
+        while done < iters:
+            steps = min(chunk, iters - done)
+            V, B, KB, g = _krylov_chunk(X_std, V, B, KB, g, sigma, steps,
+                                        power_matmul, reuse_kb)
+            done += steps
+            report(done, iters)
+        vals, vecs = _krylov_ritz_streaming(X_std, B, KB, V, sigma, neig,
+                                            matmul, reuse_kb)
+    elif krylov:
+        # small n (basis width would reach n): stacked blocks + fat QR
+        done = 0
+        bases = []
+        while done < iters:
+            steps = min(chunk, iters - done)
+            V, blocks = _power_chunk_blocks(X_std, V, sigma, steps,
+                                            power_matmul)
+            bases.append(blocks)
+            done += steps
+            report(done, iters)
+        vals, vecs = _fatqr_ritz_streaming(
+            X_std, torch.cat(bases, dim=1), sigma, neig, matmul)
+    else:
+        # constant-memory flow: Chebyshev-filtered subspace iteration. The
+        # cutoff needs no a-priori spectral bounds: each application
+        # starts from the free Gram Ritz values (_cheb_app_start), and a
+        # pessimistic cutoff degrades toward plain power, never below it.
+        nprod = iters if iters <= 3 else max(3, iters - 2)
+        step_fn = _cheb_step_fused if own else _cheb_step
+        c = 0.0
+        done = 0
+        for d in _cheb_degrees(nprod):
+            Yp, Yc, r, c = _cheb_app_start(X_std, V, c, sigma, power_matmul)
+            del V           # Yp is the same block
+            done += 1
+            report(done, nprod)
+            for _ in range(d - 1):
+                Yp, Yc, r = step_fn(X_std, Yp, Yc, r, c, sigma, power_matmul)
+                done += 1
+                report(done, nprod)
+            del Yp
+            V = _orth(Yc)
+            del Yc
+        # Rayleigh–Ritz on the last block only, K·B at full precision
+        vals, vecs = _krylov_ritz_streaming(X_std, V, None, V, sigma, neig,
+                                            matmul, False)
+    vecs = -vecs
     vals_np = vals.detach().cpu().numpy()
     if np.any(np.isnan(vals_np)):
         raise ValueError(_NAN_EIG_MSG)

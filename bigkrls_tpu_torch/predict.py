@@ -16,8 +16,9 @@ Port of ``bigkrls_tpu/predict.py`` (``predict.bigKRLS``,
   ``block_size``) newdata is processed in row blocks and ``newdataK`` is
   returned as None.
 
-The device and dtype are those of the model's kernel (or, for a model
-without one, of its covariance factor).
+The device and dtype are those of the model's kernel or, for a model
+without one (a streaming fit, a converted model), of its covariance
+factor.
 """
 from __future__ import annotations
 

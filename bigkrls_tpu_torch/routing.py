@@ -1,7 +1,7 @@
 """Pure fit-route selection, copied from ``bigkrls_tpu/routing.py``.
 
-The port runs the adaptive, fused and stepwise routes; ``model.fit``
-raises for the streaming route and for a mesh or checkpoint directory.
+The port runs all four routes on one device; ``model.fit`` raises for a
+mesh or a checkpoint directory.
 
 The eigendecomposition-route decision — which of the four execution
 strategies a fit takes through steps 2–4 — used to live as interleaved

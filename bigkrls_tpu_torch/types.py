@@ -75,7 +75,8 @@ class KRLSModel:
     # --- data ---
     X: Array                       # (N, P) original units, numpy
     y: Array                       # (N,) original units, numpy
-    K: Array                       # (N, N) kernel of standardized X, tensor
+    K: Array                       # (N, N) kernel of standardized X, tensor;
+    #                                None for a streaming (kernel-free) fit
     xlabs: Sequence[str]
 
     # --- estimates ---
@@ -140,20 +141,27 @@ class KRLSModel:
 
     @property
     def vcov_est_fitted(self) -> Optional[Array]:
-        """Dense Var(ŷ) = Kᵀ Var(c) K, materialized on demand."""
+        """Dense Var(ŷ) = Kᵀ Var(c) K, materialized on demand. None for
+        a model without a stored kernel: use :meth:`vcov_fitted_diag`."""
         if self.vcov_c_factored is None or self.K is None:
             return None
         return self.vcov_c_factored.quad_form(self.K)
 
     def vcov_fitted_diag(self) -> Optional[Array]:
-        """diag Var(ŷ) in O(N·k)."""
-        if self.vcov_c_factored is None:
+        """diag Var(ŷ) in O(N·k). For a model without a stored kernel
+        (a streaming fit, or a converted model) K·Q is recomputed by the
+        kernel-free product, on Q's device."""
+        fac = self.vcov_c_factored
+        if fac is None:
             return None
-        if self.K is None:
-            raise NotImplementedError(
-                "vcov_fitted_diag without a stored kernel needs the "
-                "streaming K·V product (ROADMAP queue 1, item 13)")
-        return self.vcov_c_factored.quad_form_diag(self.K)
+        if self.K is not None:
+            return fac.quad_form_diag(self.K)
+        from .ops.matvec import kernel_matmul
+        Q = fac.Q.contiguous()
+        X_std = torch.as_tensor((self.X - self.x_means) / self.x_sds,
+                                dtype=Q.dtype, device=Q.device)
+        KQ = kernel_matmul(X_std, Q, self.sigma)
+        return fac.scale * torch.sum(KQ * KQ * fac.spectrum[None, :], dim=1)
 
     @property
     def derivative_call(self) -> bool:

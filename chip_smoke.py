@@ -15,7 +15,19 @@
    election data's, so the fit takes the adaptive route through K1; then
    ``summary`` and ``predict(se_pred=True)``; checks the launch count, and
    holds the result against the port's own float64 fit on the CPU;
-5. prints one JSON line for the kernels, then the result line.
+5. holds the kernel-free product kernel (K2) against its plain PyTorch
+   version on the card at the streaming fit's shapes and at ragged ones:
+   precise mode, the ``init``/``out_scale`` epilogue, ``out`` aliasing
+   ``init``, fast (TF32) mode, and once against ``gauss_tile(X, X) @ V``;
+6. runs the streaming fit at N=50,000, P=20, ``neig=500`` (the route is
+   chosen by size, K is never built), checks the K2 launch count and the
+   widths of its products, then ``summary``, ``predict(se_pred=True)`` and
+   ``vcov_fitted_diag``; holds the result against the same fit through the
+   plain product (f32) and in float64, both on the card;
+7. holds a streaming fit against the dense subspace fit at N=8192, and the
+   constant-memory Chebyshev eigensolver (fast K2 and its epilogue)
+   against its plain run and against a dense ``eigvalsh``;
+8. prints one JSON line for the kernels, then the result line.
 
 Any failed check exits non-zero without the result line. No JAX is used.
 """
@@ -116,6 +128,328 @@ def check_k1(X_std, failures):
     return worst, fit_ms
 
 
+# ---------------------------------------------------------------------------
+# K2 and the streaming slice
+# ---------------------------------------------------------------------------
+
+# published H100 SXM peaks, for the bounds (dense rates, 700 W)
+PEAK_FP32, PEAK_TF32, PEAK_HBM = 67e12, 495e12, 3.35e12
+
+SN, SP, SNEIG = 50_000, 20, 500        # the streaming fit
+SQ = SNEIG + 40                        # its Krylov block width
+# K2 shapes (N, P, m): the fit's power block, its derivatives stack
+# (2 + 4·5 columns) and a single column; ragged N, P and m; an m several
+# m-tiles wide
+K2_SHAPES = [(SN, SP, SQ), (SN, SP, 22), (SN, SP, 1), (4097, 3, 5),
+             (1000, 67, 130), (8192, 20, 1100)]
+
+
+def k2_tol(n: int) -> float:
+    """Precise mode, of max|Y|: both sides round the tile to f32 (about
+    1e-6, as K1) and sum N f32 products per entry in different orders; the
+    rounding of such a sum grows like sqrt(N)·2⁻²⁴, which is 1.3e-5 at
+    N = 50,000."""
+    return 1e-5 * max(1.0, (n / 8192) ** 0.5)
+
+
+# fast mode, of max|Y|: TF32 keeps 10 mantissa bits (2⁻¹¹ ≈ 5e-4, about 3
+# digits) of the tile and of V, and the kernel and cuBLAS round to TF32
+# differently, so the two agree to a few of those units, not to f32
+K2_FAST_TOL = 5e-3
+
+
+def streaming_data(n: int):
+    """The 50k streaming recipe (iid normal X, y = sin(x₀) + 0.2·ΣX +
+    noise, seed 2016), with column 4 made binary so that the
+    first-difference half of the derivatives product runs."""
+    rng = np.random.default_rng(SEED)
+    X = rng.normal(size=(n, SP))
+    y = np.sin(X[:, 0]) + X @ (0.2 * np.ones(SP)) + rng.normal(size=n)
+    X[:, 4] = (X[:, 4] > 0)
+    return y, X
+
+
+def k2_bound_ms(n, p, m, fast):
+    """(ms, bound_by): the larger of the bytes (X, V read once, Y written
+    once) over the memory rate and the 2N²(P+m) operations over their
+    peaks (the rank-P part is fp32 in both modes)."""
+    t_bytes = 4 * (n * p + 2 * n * m) / PEAK_HBM
+    t_ops = 2 * n * n * p / PEAK_FP32 + 2 * n * n * m / (
+        PEAK_TF32 if fast else PEAK_FP32)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def check_k2(failures):
+    """K2 vs its plain version at every shape; returns the numbers of the
+    fit's power-block shape for the kernels line."""
+    from bigkrls_tpu_torch.ops import kernels, matvec
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    out = {}
+    for n, p, m in K2_SHAPES:
+        X = torch.randn((n, p), generator=gen, device="cuda")
+        V = torch.randn((n, m), generator=gen, device="cuda")
+        init = torch.randn((n, m), generator=gen, device="cuda")
+        sigma, tol = float(p), k2_tol(n)
+        Y = matvec.kernel_matmul(X, V, sigma)
+        ref = matvec.kernel_matmul_plain(X, V, sigma)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        err = (Y - ref).abs().max().item()
+        # the epilogue, and out aliasing init (same bits as the unaliased run)
+        Ye = matvec.kernel_matmul(X, V, sigma, init=init, out_scale=-2.5)
+        ref_e = matvec.kernel_matmul_plain(X, V, sigma, init=init,
+                                           out_scale=-2.5)
+        err_e = (Ye - ref_e).abs().max().item() / ref_e.abs().max().item()
+        buf = init.clone()
+        Ya = matvec.kernel_matmul(X, V, sigma, init=buf, out_scale=-2.5,
+                                  out=buf)
+        alias_ok = Ya.data_ptr() == buf.data_ptr() and torch.equal(Ya, Ye)
+        big = n >= 8192
+        reps, warm = (5, 1) if big else (20, 3)
+        t_k = cuda_ms(lambda: matvec.kernel_matmul(X, V, sigma), reps, warm)
+        t_p = cuda_ms(lambda: matvec.kernel_matmul_plain(X, V, sigma), reps,
+                      warm)
+        print(f"K2 ({n},P={p},m={m}): max|d|/max|Y|={err / scale:.3e} "
+              f"(limit {tol:.1e}), epilogue {err_e:.3e}, alias ok="
+              f"{alias_ok}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
+              flush=True)
+        if not err <= tol * scale:
+            failures.append(f"K2 ({n},{p},{m}): {err / scale} > {tol}")
+        if not err_e <= tol:
+            failures.append(f"K2 ({n},{p},{m}) epilogue: {err_e} > {tol}")
+        if not alias_ok:
+            failures.append(f"K2 ({n},{p},{m}): out aliasing init differs")
+        if (n, p, m) == (SN, SP, SQ):
+            bound, by = k2_bound_ms(n, p, m, False)
+            out.update(max_abs_err=err, max_rel_err=err / scale, ms=t_k,
+                       plain_ms=t_p, bound_ms=bound, bound_by=by)
+            # fast mode against the plain version under TF32
+            Yf = matvec.kernel_matmul(X, V, sigma, fast_accum=True)
+            ref_f = matvec.kernel_matmul_plain(X, V, sigma, fast_accum=True)
+            torch.cuda.synchronize()
+            err_f = (Yf - ref_f).abs().max().item()
+            t_kf = cuda_ms(lambda: matvec.kernel_matmul(
+                X, V, sigma, fast_accum=True), reps, warm)
+            t_pf = cuda_ms(lambda: matvec.kernel_matmul_plain(
+                X, V, sigma, fast_accum=True), reps, warm)
+            print(f"K2 fast ({n},P={p},m={m}): max|d|/max|Y|="
+                  f"{err_f / scale:.3e} (limit {K2_FAST_TOL:g}); vs precise "
+                  f"{(Yf - Y).abs().max().item() / scale:.3e}; kernel "
+                  f"{t_kf:.4f} ms, plain {t_pf:.4f} ms", flush=True)
+            if not err_f <= K2_FAST_TOL * scale:
+                failures.append(f"K2 fast: {err_f / scale} > {K2_FAST_TOL}")
+            out.update(fast_max_abs_err=err_f, fast_ms=t_kf,
+                       fast_plain_ms=t_pf,
+                       fast_bound_ms=k2_bound_ms(n, p, m, True)[0])
+            del Yf, ref_f
+        del X, V, init, Y, ref, Ye, ref_e, buf, Ya
+
+    # against the dense kernel: K2's on-chip tile is K1's tile bit for bit
+    # (unit columns of V pick entries of K out unchanged), and K2(X, V)
+    # agrees with gauss_tile(X, X) @ V like with the plain version
+    n = 8192
+    X = torch.randn((n, SP), generator=gen, device="cuda")
+    V = torch.randn((n, 64), generator=gen, device="cuda")
+    K = kernels.gauss_tile(X, X, float(SP), False)
+    E = torch.zeros((n, 64), device="cuda")
+    E[torch.arange(64), torch.arange(64)] = 1.0
+    bit_ok = torch.equal(matvec.kernel_matmul(X, E, float(SP)), K[:, :64])
+    ref = K @ V
+    err = ((matvec.kernel_matmul(X, V, float(SP)) - ref).abs().max().item()
+           / ref.abs().max().item())
+    print(f"K2 vs gauss_tile(X,X) @ V at N={n}: {err:.3e} (limit "
+          f"{k2_tol(n):.1e}); tile bit-equal to K1's: {bit_ok}", flush=True)
+    if not err <= k2_tol(n):
+        failures.append(f"K2 vs K1 @ V: {err} > {k2_tol(n)}")
+    if not bit_ok:
+        failures.append("K2's tile differs from K1's")
+    return out
+
+
+class Counts:
+    """Set the kernels' launch counters to 0, read them later."""
+
+    def __init__(self):
+        from bigkrls_tpu_torch.ops import kernels, matvec
+        self.k, self.m = kernels, matvec
+        kernels.gauss_tile_launches = 0
+        matvec.kernel_matmul_launches = 0
+        matvec.kernel_matmul_fast_launches = 0
+
+    def read(self):
+        return (self.k.gauss_tile_launches, self.m.kernel_matmul_launches,
+                self.m.kernel_matmul_fast_launches)
+
+
+def streaming_phase(bt, failures):
+    """The slice at full size. Returns K2's launch count in the fit."""
+    from bigkrls_tpu_torch.ops import matvec
+    y, X = streaming_data(SN)
+    kw = dict(neig=SNEIG, which_derivatives=[0, 1, 2, 3, 4], device="cuda")
+
+    # record the width of every product the fit asks for
+    widths, real = [], matvec.kernel_matmul
+
+    def recording(Xa, V, sigma, **k):
+        widths.append(int(V.shape[1]))
+        return real(Xa, V, sigma, **k)
+
+    counts = Counts()
+    matvec.kernel_matmul = recording
+    try:
+        t0 = time.perf_counter()
+        m = bt.fit(y, X, **kw)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        matvec.kernel_matmul = real
+    _, k2_fit, k2_fast = counts.read()
+    print(f"cold streaming fit N={SN} P={SP} neig={SNEIG}: {fit_s:.3f} s, "
+          f"eig_path {m.eig_path}, K is None: {m.K is None}, lambda "
+          f"{m.lambda_:.6g}, lastkeeper {m.lastkeeper}, Neff "
+          f"{m.neffective:.4f}, R2 {m.R2:.6f}; K2 launches {k2_fit} "
+          f"(fast {k2_fast}), product widths {widths}", flush=True)
+    if m.eig_path != "streaming-krylov" or m.K is not None:
+        failures.append(f"N={SN} fit took {m.eig_path!r} (K stored: "
+                        f"{m.K is not None}), not the streaming route")
+    # progressive flow at f32: 6 power products and the last block's Ritz
+    # product (width q each), then the derivatives stack (2 + 4·5), which
+    # also yields ŷ: no width-1 product
+    if widths != [SQ] * 7 + [22] or k2_fit != 8 or k2_fast != 0:
+        failures.append(f"streaming fit: K2 launches {k2_fit} (fast "
+                        f"{k2_fast}), widths {widths}; expected 8 precise "
+                        f"launches of widths {[SQ] * 7 + [22]}")
+    s = bt.summary(m)
+    pred = bt.predict(m, X[:10], se_pred=True)
+    vdiag = m.vcov_fitted_diag()
+    k1_s, k2_s, _ = counts.read()
+    ok = (np.all(np.isfinite(m.coeffs)) and m.coeffs.shape == (SN,)
+          and m.derivatives.shape == (SN, 5)
+          and np.all(np.isfinite(m.derivatives))
+          and np.all(np.isfinite(pred.predicted))
+          and np.all(np.isfinite(pred.se_pred)) and np.all(pred.se_pred > 0)
+          and s.ttests.shape == (5, 4) and s.labels[4].endswith("*")
+          and vdiag.shape == (SN,) and bool(torch.isfinite(vdiag).all())
+          and bool((vdiag > 0).all())
+          and k1_s == 1 and k2_s == k2_fit + 1)
+    print(f"summary, predict(10 rows, SEs), vcov_fitted_diag: ok={ok}; K1 "
+          f"launches {k1_s} (predict), K2 launches {k2_s} (fit + "
+          f"vcov_fitted_diag)")
+    if not ok:
+        failures.append("streaming fit/summary/predict/vcov_fitted_diag "
+                        "outputs not finite, of the wrong shape, or not "
+                        "through the kernels")
+
+    t0 = time.perf_counter()
+    m_warm = bt.fit(y, X, noisy=False, **kw)
+    print(f"warm streaming fit: {time.perf_counter() - t0:.3f} s, timings "
+          f"{json.dumps(m_warm.timings)}")
+    print(f"peak device memory so far: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    t0 = time.perf_counter()
+    m_plain = bt.fit(y, X, noisy=False, kernel_impl="plain", **kw)
+    pred_plain = bt.predict(m_plain, X[:10], se_pred=True)
+    print(f"same fit, plain product (f32): {time.perf_counter() - t0:.3f} s, "
+          f"timings {json.dumps(m_plain.timings)}")
+    print("card f32 K2 vs card f32 plain product:")
+    compare(m, m_plain, pred, pred_plain, y, failures)
+
+    t0 = time.perf_counter()
+    m64 = bt.fit(y, X, noisy=False, dtype=torch.float64, **kw)
+    pred64 = bt.predict(m64, X[:10], se_pred=True)
+    print(f"same fit, float64 on the card (plain product): "
+          f"{time.perf_counter() - t0:.2f} s, timings "
+          f"{json.dumps(m64.timings)}")
+    print("card f32 K2 vs card f64:")
+    compare(m, m64, pred, pred64, y, failures)
+    del m_plain, m64, m_warm
+    torch.cuda.empty_cache()
+    return k2_fit
+
+
+def streaming_vs_dense(bt, failures):
+    """fit(streaming=True) against the dense subspace fit, same neig and
+    the same Krylov depth (the dense solver's 8), both f32 on the card."""
+    n, k = 8192, 200
+    y, X = streaming_data(n)
+    kw = dict(neig=k, which_derivatives=[0, 1, 2, 3, 4], device="cuda",
+              noisy=False)
+    ms = bt.fit(y, X, streaming=True, eig_iters=8, **kw)
+    md = bt.fit(y, X, eig_method="subspace", **kw)
+    print(f"N={n} neig={k}: streaming ({ms.eig_path}, K is None: "
+          f"{ms.K is None}) vs dense ({md.eig_path}): lambda "
+          f"{ms.lambda_:.6g} / {md.lambda_:.6g}, Neff {ms.neffective:.4f} / "
+          f"{md.neffective:.4f}")
+    compare(ms, md, bt.predict(ms, X[:10], se_pred=True),
+            bt.predict(md, X[:10], se_pred=True), y, failures)
+    if ms.K is not None or md.K is None:
+        failures.append("streaming vs dense: wrong routes")
+
+
+# Chebyshev flow, top-neig eigenvalues. Against its plain run, of λ₁: the
+# same flow with TF32 power products rounded differently; the Ritz product
+# is full precision on both sides, so the values differ only by the
+# subspaces' TF32-level difference entering at second order. Against dense
+# eigvalsh, relative: 4 filter products leave the tail of the 200 values
+# partly unconverged (1.4e-4 at this shape when this limit was set; the
+# JAX suite allows 0.15 for this flow on a slower-decaying spectrum); the
+# top 20 are converged to f32 rounding.
+CHEB_VS_PLAIN = 1e-5
+CHEB_VS_DENSE_MAXREL = 5e-3
+CHEB_HEAD_REL = 1e-4
+
+
+def chebyshev_phase(failures):
+    """The constant-memory flow through fast K2 and its fused epilogue."""
+    from bigkrls_tpu_torch.ops import eig, kernels, matvec
+    n, k = 8192, 200
+    _, X = streaming_data(n)
+    Xd = torch.as_tensor(X, dtype=torch.float32, device="cuda")
+    X_std = ((Xd - Xd.mean(0)) / Xd.std(0, correction=1)).contiguous()
+    sigma = float(SP)
+    counts = Counts()
+    e = eig.eigensystem_streaming(X_std, sigma, neig=k, iters=6, krylov=False)
+    _, launches, fast = counts.read()
+    e_plain = eig.eigensystem_streaming(X_std, sigma, neig=k, iters=6,
+                                        krylov=False, impl="plain")
+    dense = torch.linalg.eigvalsh(
+        kernels.gauss_tile(X_std, X_std, sigma, True)).flip(0)[:k]
+    v, vp = e.values_full, e_plain.values_full
+    lam1 = dense[0].item()
+    d_plain = (v - vp).abs().max().item() / lam1
+    d_rel = ((v - dense).abs() / dense).max().item()
+    d_head = ((v[:20] - dense[:20]).abs() / dense[:20]).max().item()
+    print(f"Chebyshev flow N={n} neig={k}: K2 launches {launches} (fast "
+          f"{fast}); vs plain run {d_plain:.3e} of lambda_1 (limit "
+          f"{CHEB_VS_PLAIN:g}); vs dense eigvalsh max-rel {d_rel:.3e} "
+          f"(limit {CHEB_VS_DENSE_MAXREL:g}), top-20 {d_head:.3e} (limit "
+          f"{CHEB_HEAD_REL:g})", flush=True)
+    # 4 filter products in fast mode, then the full-precision Ritz product
+    if (launches, fast) != (5, 4):
+        failures.append(f"Chebyshev flow: K2 launches {launches}, fast "
+                        f"{fast}; expected 5 and 4")
+    if not (d_plain <= CHEB_VS_PLAIN and d_rel <= CHEB_VS_DENSE_MAXREL
+            and d_head <= CHEB_HEAD_REL):
+        failures.append(f"Chebyshev flow eigenvalues: vs plain {d_plain}, "
+                        f"vs dense {d_rel}, head {d_head}")
+
+    # which flow fit() picks by itself on this card
+    total = torch.cuda.mem_get_info()[1]
+    flip = next(nn for nn in range(100_000, 10_000_001, 100_000)
+                if 2 * nn * 7 * SQ * 4 > 0.6 * total)
+    picks_1m = eig._auto_krylov(1_000_000, SQ, 6, 4, device="cuda")
+    print(f"_auto_krylov on this card ({total / 2**30:.1f} GiB): at N=1M, "
+          f"neig={SNEIG}, f32 the basis needs "
+          f"{2 * 1_000_000 * 7 * SQ * 4 / 2**30:.1f} GiB -> block-Krylov: "
+          f"{picks_1m}; the constant-memory flow is first chosen at "
+          f"N={flip}")
+    if not picks_1m:
+        failures.append("_auto_krylov: expected block-Krylov at N=1M")
+
+
 def rel(a, b):
     return abs(a - b) / max(abs(b), 1e-300)
 
@@ -191,7 +525,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     k1_err, (k1_ms, plain_ms) = check_k1(X_std, failures)
 
-    # ---- the main path: fit, summary, predict on the card ----
+    # ---- the dense main path: fit, summary, predict on the card ----
     kernels.gauss_tile_launches = 0
     t0 = time.perf_counter()
     m = bt.fit(y, X, device="cuda")
@@ -229,12 +563,29 @@ def main() -> int:
     print("card f32 vs CPU f64:")
     compare(m, m_cpu, pred, pred_cpu, y, failures)
 
+    # ---- K2 and the streaming slice ----
+    k2 = check_k2(failures)
+    k2_launches = streaming_phase(bt, failures)
+    streaming_vs_dense(bt, failures)
+    chebyshev_phase(failures)
+
+    # K1's bound at the dense fit's shape: 2N²P fp32 operations; X read
+    # (twice, as A and B) and K written once
+    k1_ops = 2 * N * N * P / PEAK_FP32
+    k1_bytes = 4 * (2 * N * P + N * N) / PEAK_HBM
     print(json.dumps({"kernels": [{
         "name": "gauss_tile", "route": "cuda",
         "source": "bigkrls_tpu_torch/csrc/gauss_kernel.cu",
         "replaces": "bigkrls_tpu/ops/kernels.py:87",
         "launches": launches, "max_abs_err": k1_err,
-        "ms": k1_ms, "plain_ms": plain_ms}]}))
+        "ms": k1_ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(k1_ops, k1_bytes),
+        "bound_by": "operations" if k1_ops > k1_bytes else "bytes",
+        "library_ms": None}, {
+        "name": "kernel_matmul", "route": "cuda",
+        "source": "bigkrls_tpu_torch/csrc/kernel_matmul.cu",
+        "replaces": "bigkrls_tpu/ops/matvec.py:139",
+        "launches": k2_launches, "library_ms": None, **k2}]}))
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1

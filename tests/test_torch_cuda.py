@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from bigkrls_tpu_torch.ops import kernels
+from bigkrls_tpu_torch.ops import kernels, matvec
 
 pytestmark = pytest.mark.cuda
 
@@ -100,3 +100,166 @@ def test_fit_on_card_matches_cpu(cuda):
     assert (np.max(np.abs(pred.predicted - pred64.predicted))
             <= 1e-3 * np.std(y, ddof=1))
     assert np.all(np.isfinite(pred.se_pred)) and np.all(pred.se_pred > 0)
+
+
+# ---- K2, the kernel-free product ------------------------------------------
+
+def _k2_tol(n):
+    """Of max|Y|: f32 rounding of the tile (about 1e-6) plus a length-N f32
+    sum taken in another order, which grows like sqrt(N)·2⁻²⁴."""
+    return 1e-5 * max(1.0, (n / 8192) ** 0.5)
+
+
+# (N, P, m): ragged N, P and m, a single column, an m several m-tiles
+# wide, and P past one 16-wide slice
+K2_SHAPES = [(1000, 67, 130), (4097, 3, 5), (517, 20, 1), (2048, 20, 540),
+             (63, 2, 64), (65, 17, 65)]
+
+
+@pytest.mark.parametrize("n,p,m", K2_SHAPES)
+def test_kernel_matmul_matches_plain(cuda, n, p, m):
+    """Precise mode vs the plain version, bare and with the epilogue; out
+    aliasing init gives the unaliased run's bits (sums are in a fixed
+    order, so runs repeat bit for bit)."""
+    rng = np.random.default_rng(n + p + m)
+    X, V, init = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                                  device=cuda)
+                  for s in ((n, p), (n, m), (n, m)))
+    sigma = float(p)
+    before = (matvec.kernel_matmul_launches,
+              matvec.kernel_matmul_fast_launches)
+    Y = matvec.kernel_matmul(X, V, sigma)
+    torch.cuda.synchronize()
+    assert (matvec.kernel_matmul_launches,
+            matvec.kernel_matmul_fast_launches) == (before[0] + 1, before[1])
+    ref = matvec.kernel_matmul_plain(X, V, sigma)
+    assert Y.shape == (n, m) and Y.dtype == torch.float32
+    assert (Y - ref).abs().max().item() <= _k2_tol(n) * ref.abs().max().item()
+    assert torch.equal(Y, matvec.kernel_matmul(X, V, sigma))
+    Ye = matvec.kernel_matmul(X, V, sigma, init=init, out_scale=-2.5)
+    ref_e = matvec.kernel_matmul_plain(X, V, sigma, init=init, out_scale=-2.5)
+    assert ((Ye - ref_e).abs().max().item()
+            <= _k2_tol(n) * ref_e.abs().max().item())
+    buf = init.clone()
+    Ya = matvec.kernel_matmul(X, V, sigma, init=buf, out_scale=-2.5, out=buf)
+    assert Ya.data_ptr() == buf.data_ptr() and torch.equal(Ya, Ye)
+
+
+@pytest.mark.parametrize("n,p,m", [(2048, 20, 540), (1000, 67, 130),
+                                   (517, 20, 1)])
+def test_kernel_matmul_fast_mode(cuda, n, p, m):
+    """Fast mode (TF32 on tile·V only) vs the plain version under TF32:
+    5e-3 of max|Y| (TF32 keeps 10 mantissa bits of the tile and of V, and
+    the kernel and cuBLAS round to it differently)."""
+    rng = np.random.default_rng(n + m)
+    X, V = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                            device=cuda) for s in ((n, p), (n, m)))
+    before = matvec.kernel_matmul_fast_launches
+    Y = matvec.kernel_matmul(X, V, float(p), fast_accum=True)
+    torch.cuda.synchronize()
+    assert matvec.kernel_matmul_fast_launches == before + 1
+    ref = matvec.kernel_matmul_plain(X, V, float(p), fast_accum=True)
+    assert torch.backends.cuda.matmul.allow_tf32 is False    # restored
+    assert (Y - ref).abs().max().item() <= 5e-3 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_kernel_matmul_result_does_not_depend_on_tile_width(cuda, fast):
+    """The kernel picks the width of its output tile (64, 128 or 192
+    columns) from m; every output element is summed over j ascending
+    whatever the width, so forcing each width gives the same bits."""
+    rng = np.random.default_rng(11)
+    n, p, m = 1500, 40, 300         # P > 32: two chunks of the rank-P chain
+    X, V = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                            device=cuda) for s in ((n, p), (n, m)))
+    outs = [matvec._kernel_matmul_cuda(X, V, float(p), None, None, fast, None,
+                                       m_tiles=g) for g in (0, 1, 2, 3)]
+    for Y in outs[1:]:
+        assert torch.equal(Y, outs[0])
+
+
+def test_kernel_matmul_tile_is_the_dense_kernels(cuda):
+    """Unit columns of V pick entries of K out unchanged: K2's on-chip tile
+    equals ``gauss_tile(X, X)`` bit for bit, its inexact diagonal
+    included (K2, like the JAX product, writes no exact-1 diagonal)."""
+    n = 700
+    X = torch.as_tensor(np.random.default_rng(0).normal(size=(n, 20)),
+                        dtype=torch.float32, device=cuda)
+    K = kernels.gauss_tile(X, X, 20.0, False)
+    E = torch.eye(n, device=cuda)[:, :130].contiguous()
+    assert torch.equal(matvec.kernel_matmul(X, E, 20.0), K[:, :130])
+
+
+def test_kernel_matmul_64bit_offsets(cuda):
+    """N·m = 33000·66000 > 2³¹ on a narrow P: the last rows of V, init and
+    out sit past any 32-bit offset. Fast mode (the offsets are shared by
+    both modes); the last 64 rows against the dense cross kernel."""
+    n, p, m = 33000, 2, 66000
+    assert n * m > 2 ** 31
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    X = torch.randn((n, p), generator=gen, device=cuda)
+    V = torch.randn((n, m), generator=gen, device=cuda)
+    Y = matvec.kernel_matmul(X, V, float(p), fast_accum=True)
+    torch.cuda.synchronize()
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tail = kernels.gauss_tile_plain(X[-64:], X, float(p), False) @ V
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert ((Y[-64:] - tail).abs().max().item()
+            <= 5e-3 * tail.abs().max().item())
+    del Y, V
+
+
+def test_kernel_matmul_rejects_bad_input(cuda):
+    X = torch.zeros((8, 3), dtype=torch.float32, device=cuda)
+    V = torch.zeros((8, 4), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):                     # f64 asked of the kernel
+        matvec.kernel_matmul(X.double(), V.double(), 3.0, impl="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        matvec.kernel_matmul(X, torch.zeros((4, 8), device=cuda).T, 3.0)
+    with pytest.raises(ValueError, match="alias"):
+        matvec.kernel_matmul(X, V, 3.0, out=V)
+    with pytest.raises(TypeError):                     # V on another device
+        matvec.kernel_matmul(X, V.cpu(), 3.0)
+    # a float64 CUDA tensor under "auto" is the caller asking for f64: plain
+    before = matvec.kernel_matmul_launches
+    Y = matvec.kernel_matmul(X.double(), V.double(), 3.0)
+    assert Y.dtype == torch.float64
+    assert matvec.kernel_matmul_launches == before
+
+
+def test_streaming_fit_on_card_matches_cpu(cuda):
+    """A small streaming fit on the card (f32, every product through K2)
+    vs the port's float64 streaming fit on the CPU, chip_smoke.py's
+    tolerances. At N=600 with neig=60 the Krylov basis spans 7·100 > N
+    columns (stacked flow), so both sides are converged."""
+    import bigkrls_tpu_torch as bt
+    rng = np.random.default_rng(2016)
+    n, p = 600, 5
+    X = rng.normal(size=(n, p))
+    X[:, 4] = (X[:, 4] > 0).astype(float)
+    y = np.sin(X[:, 0]) + X @ (0.2 * np.ones(p)) + 0.5 * rng.normal(size=n)
+    kw = dict(neig=60, streaming=True, noisy=False)
+    before = matvec.kernel_matmul_launches
+    m = bt.fit(y, X, device="cuda", **kw)
+    assert m.K is None and m.eig_path == "streaming-krylov"
+    assert matvec.kernel_matmul_launches == before + 6 + 1 + 1
+    d = m.vcov_fitted_diag()
+    assert matvec.kernel_matmul_launches == before + 9
+    m64 = bt.fit(y, X, device="cpu", dtype=torch.float64, **kw)
+    assert m.lastkeeper == m64.lastkeeper
+    assert m.lambda_ == pytest.approx(m64.lambda_, rel=2e-2)
+    assert m.looe == pytest.approx(m64.looe, rel=1e-3)
+    assert m.neffective == pytest.approx(m64.neffective, rel=1e-3)
+    assert abs(m.R2 - m64.R2) <= 1e-4
+    amax = np.max(np.abs(m64.avgderivatives))
+    assert np.max(np.abs(m.avgderivatives - m64.avgderivatives)) <= 1e-2 * amax
+    assert np.allclose(d.cpu().numpy(), m64.vcov_fitted_diag().numpy(),
+                       rtol=5e-2)
+    pred = bt.predict(m, X[:10], se_pred=True)
+    pred64 = bt.predict(m64, X[:10], se_pred=True)
+    assert (np.max(np.abs(pred.predicted - pred64.predicted))
+            <= 1e-3 * np.std(y, ddof=1))

@@ -157,10 +157,14 @@ def test_unported_options_raise(rng):
     y = X[:, 0] + 0.1 * rng.normal(size=40)
     for kw, item in ((dict(mesh=object()), "item 18"),
                      (dict(checkpoint_dir="ckpt"), "item 15"),
-                     (dict(streaming=True, neig=10), "items 11-13"),
-                     (dict(neig=10, streaming_threshold=40), "items 11-13")):
+                     (dict(mesh=object(), streaming=True, neig=10),
+                      "item 18")):
         with pytest.raises(NotImplementedError, match=item):
             bt.fit(y, X, noisy=False, **kw, **CPU64)
+    # the streaming route is ported: asked for, or chosen by size, it runs
+    for kw in (dict(streaming=True, neig=10),
+               dict(neig=10, streaming_threshold=40)):
+        assert bt.fit(y, X, noisy=False, **kw, **CPU64).K is None
 
 
 def test_validation_errors(rng):

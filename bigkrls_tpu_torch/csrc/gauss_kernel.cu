@@ -93,6 +93,7 @@ gauss_tile_kernel(const float* __restrict__ A, const float* __restrict__ B,
     __syncthreads();
   }
 
+  const float rcp = bigkrls::sigma_reciprocal(sigma);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t row = m0 + ty + 16 * i;
@@ -102,7 +103,7 @@ gauss_tile_kernel(const float* __restrict__ A, const float* __restrict__ B,
     for (int j = 0; j < 4; ++j) {
       const int64_t col = n0 + tx + 16 * j;
       if (col >= N) continue;
-      float v = gauss_entry(g[i][j], r_row, rb[col], sigma);
+      float v = gauss_entry(g[i][j], r_row, rb[col], sigma, rcp);
       if (symmetric_diag && row == col) v = 1.0f;
       out[row * N + col] = v;
     }

@@ -115,7 +115,7 @@ def library() -> ctypes.CDLL:
     lib.gauss_tile_f32.argtypes = [p, p, p, p, i64, i64, i64, ctypes.c_float,
                                    p, ctypes.c_int, p]
     lib.gauss_tile_f32.restype = ctypes.c_int
-    lib.kernel_matmul_f32.argtypes = [p, p, p, p, p, i64, i64, i64,
+    lib.kernel_matmul_f32.argtypes = [p, p, i64, p, p, p, i64, i64, i64,
                                       ctypes.c_float, ctypes.c_float,
                                       ctypes.c_int, ctypes.c_int, p]
     lib.kernel_matmul_f32.restype = ctypes.c_int

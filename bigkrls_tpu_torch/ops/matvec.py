@@ -16,15 +16,31 @@ with ``init`` and ``out_scale`` optional. Like the JAX product, and unlike
 ``gauss_kernel``, it writes no exact-1 diagonal. Two implementations:
 
 * the hand-written CUDA kernel ``csrc/kernel_matmul.cu`` (the port of the
-  Pallas ``_km_kernel``): f32 CUDA tensors; the K tiles live only on chip;
+  Pallas ``_km_kernel``): f32 CUDA tensors; the K tiles live only on chip
+  and tile·V runs on the tensor cores;
 * :func:`kernel_matmul_plain`: the blocked PyTorch loop, one (N, block)
   tile of K at a time. It serves CPU tensors, float64 fits and
   ``impl="plain"``.
 
-``fast_accum`` lowers only the tile·V contraction to TF32; the rank-P
-distance part stays IEEE fp32, since its errors land inside exp().
+The rank-P distance part is IEEE fp32 in every mode, since its errors land
+inside exp(). Only the tile·V contraction differs:
+
+* precise (the default): the split-TF32 product. The tile and V are each
+  written as hi + lo, both parts rounded to TF32's 10 mantissa bits, and
+  lo·hi + hi·lo + hi·hi is summed in fp32: the counterpart of the JAX
+  package's ``Precision.HIGHEST``, itself a multi-pass product on the
+  matrix unit. The dropped lo·lo term and the rounding of the lo parts are
+  2⁻²² relative per product. :func:`kernel_matmul_split_plain` is the
+  plain PyTorch version of this arithmetic;
+* ``fast_accum``: one pass on the hi parts (TF32).
+
+The kernel also holds an IEEE fp32 FMA pass without tensor cores
+(``mode="fma"`` of :func:`_kernel_matmul_cuda`), which the split product is
+measured against; no public argument reaches it.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -90,8 +106,9 @@ def kernel_matmul_plain(X, V, sigma, *, init=None, out_scale=None,
     """Plain PyTorch version of the CUDA kernel: a loop over column blocks
     of K, each step materializing one (N, block) tile.
 
-    ``fast_accum`` runs the tile·V product (and nothing else) under TF32 on
-    a CUDA tensor; on the CPU it has no effect. ``out`` receives the result
+    The tile·V product is a plain f32 ``addmm``; ``fast_accum`` runs it
+    (and nothing else) under TF32 on a CUDA tensor and has no effect on the
+    CPU. ``out`` receives the result
     and may be ``init`` itself."""
     sigma = float(sigma)
     _check(X, V, sigma, init, out)
@@ -112,6 +129,55 @@ def kernel_matmul_plain(X, V, sigma, *, init=None, out_scale=None,
             out.addmm_(tile, V[lo:hi])
         finally:
             torch.backends.cuda.matmul.allow_tf32 = old
+    if out_scale is not None:
+        out.mul_(float(out_scale))
+    return out
+
+
+def _tf32_round(x):
+    """``x`` (float32) rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero, by integer masking: the kernel's own two integer
+    operations, and what ``cvt.rna.tf32.f32`` gives for finite values."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_split(x):
+    hi = _tf32_round(x)
+    return hi, _tf32_round(x - hi)
+
+
+def kernel_matmul_split_plain(X, V, sigma, *, init=None, out_scale=None,
+                              block: int = 1024, out=None):
+    """Plain PyTorch version of the kernel's precise mode: the tile from
+    the same rank-P formula in f32, then tile = hi + lo and V = hi + lo
+    (:func:`_tf32_round`) and three f32 ``addmm``s, lo·hi + hi·lo + hi·hi.
+    It runs on the CPU, and on a CUDA tensor with TF32 switched off; tests
+    and ``chip_smoke.py`` use it, the package does not."""
+    sigma = float(sigma)
+    _check(X, V, sigma, init, out)
+    if X.dtype != torch.float32:
+        raise TypeError(f"kernel_matmul_split_plain: float32 only, got "
+                        f"{X.dtype}")
+    n = X.shape[0]
+    if out is None:
+        out = torch.empty_like(V)
+    if init is None:
+        out.zero_()
+    elif out.data_ptr() != init.data_ptr():
+        out.copy_(init)
+    v_hi, v_lo = _tf32_split(V)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for lo in range(0, n, block):
+            hi = min(lo + block, n)
+            t_hi, t_lo = _tf32_split(torch.exp(-_sqdist(X, X[lo:hi]) / sigma))
+            out.addmm_(t_lo, v_hi[lo:hi])
+            out.addmm_(t_hi, v_lo[lo:hi])
+            out.addmm_(t_hi, v_hi[lo:hi])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
     if out_scale is not None:
         out.mul_(float(out_scale))
     return out
@@ -144,11 +210,76 @@ def kernel_matmul(X, V, sigma, *, init=None, out_scale=None,
                                bool(fast_accum), out)
 
 
+# widths of a block's output tile, in 64-column units (the kernel's NT). The
+# widest, 5, is half of a pair: two blocks on neighbouring SMs, 320 columns
+# each, that build one K tile between them (32 rows each, written into both
+# blocks' shared memory)
+_N_TILES = (1, 4, 5)
+_PAIR = 5
+# what building one 64 x 64 tile of K costs a block, in columns of tile·V:
+# the build runs beside the product, so a block's step costs the larger
+_BUILD_COLUMNS = 192
+_MODES = {"split": 0, "fast": 1, "fma": 2}
+
+
+def _tile_plan(n: int, p: int, m: int, sms: int) -> int:
+    """The width of a block's output tile, in 64-column units, as a pure
+    function of the shape and the card's SM count.
+
+    A block of width w builds each K tile (half of it, in a pair) and
+    multiplies it into its w columns meanwhile, so one of its steps costs
+    max(w, build). The grid's ceil(n / 64) · ceil(m / w) blocks run in
+    waves of one block per SM (two for the narrowest tile while P fits one
+    chunk), and the width with the least waves · max(w, build) wins, the
+    wider on a tie: the pair at m = 540 (one build per (i, j)), the
+    narrowest at m = 22, and a narrower one than m suggests where wide
+    tiles would leave SMs without a block. Every output element sees the
+    same operations whatever the width, so the choice does not change the
+    result."""
+    rows = -(-n // 64)
+
+    def cost(nt):
+        per_sm = 2 if nt == 1 and p <= 32 else 1
+        cols = -(-m // (64 * nt))
+        build = _BUILD_COLUMNS
+        if nt == _PAIR:
+            cols, build = cols + cols % 2, build // 2
+        waves = -(-rows * cols // (sms * per_sm))
+        return waves * max(64 * nt, build)
+
+    return min(_N_TILES, key=lambda nt: (cost(nt), -nt))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    """SMs of CUDA device ``index`` (None: the current one); asked once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stage_v(V):
+    """``V`` as the kernel takes it: 16-byte aligned with a row pitch that
+    is a multiple of 4 floats, so that every copy into shared memory is 16
+    bytes wide. Returns ``(buffer, pitch)``: ``V`` itself where it
+    qualifies, else a copy into a buffer padded to the next multiple of 4
+    columns (4·N·(pitch − m) extra bytes beside the copy of V; the pad
+    columns are never read into a stored result)."""
+    n, m = V.shape
+    if m % 4 == 0 and V.data_ptr() % 16 == 0:
+        return V, m
+    pitch = -(-m // 4) * 4
+    buf = torch.empty((n, pitch), dtype=V.dtype, device=V.device)
+    buf[:, :m].copy_(V)
+    return buf, pitch
+
+
 def _kernel_matmul_cuda(X, V, sigma, init, out_scale, fast_accum, out,
-                        m_tiles: int = 0):
-    """Launch the CUDA kernel. ``m_tiles`` forces the width of the block's
-    output tile to 64·m_tiles columns (1 to 3); 0 lets the kernel choose.
-    The result does not depend on it, bit for bit."""
+                        n_tiles: int = 0, mode: str | None = None):
+    """Launch the CUDA kernel. ``n_tiles`` forces the width of the block's
+    output tile to 64·n_tiles columns (1, 4 or 5, the pair); 0 takes
+    :func:`_tile_plan`'s. The result does not depend on it, bit for bit.
+    ``mode`` ("split", "fast" or "fma") overrides the mode that
+    ``fast_accum`` selects: "fma" is the IEEE fp32 pass without tensor
+    cores that tools and tests measure the split product against."""
     global kernel_matmul_launches, kernel_matmul_fast_launches
     if X.device.type != "cuda":
         raise ValueError(f"kernel_matmul: the CUDA kernel needs a CUDA "
@@ -162,23 +293,32 @@ def _kernel_matmul_cuda(X, V, sigma, init, out_scale, fast_accum, out,
     if (m + 63) // 64 > 65535:
         raise ValueError(f"kernel_matmul: m={m} columns exceed the grid "
                          "limit")
+    if mode is None:
+        mode = "fast" if fast_accum else "split"
+    if mode not in _MODES:
+        raise ValueError(f"kernel_matmul: unknown mode {mode!r}")
+    if n_tiles == 0:
+        n_tiles = _tile_plan(n, p, m, _sm_count(X.device.index))
+    elif n_tiles not in _N_TILES:
+        raise ValueError(f"kernel_matmul: n_tiles must be one of {_N_TILES}")
     from ._build import library
     lib = library()
     if out is None:
         out = torch.empty((n, m), dtype=torch.float32, device=X.device)
     r = torch.empty((n,), dtype=torch.float32, device=X.device)
+    Vk, ldv = _stage_v(V)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = lib.kernel_matmul_f32(
-            X.data_ptr(), V.data_ptr(),
+            X.data_ptr(), Vk.data_ptr(), ldv,
             None if init is None else init.data_ptr(), r.data_ptr(),
             out.data_ptr(), n, p, m, sigma,
             1.0 if out_scale is None else float(out_scale),
-            int(fast_accum), int(m_tiles), stream)
+            _MODES[mode], int(n_tiles), stream)
     if err != 0:
         raise RuntimeError(f"kernel_matmul: CUDA launch failed with error "
                            f"{err}")
     kernel_matmul_launches += 1
-    if fast_accum:
+    if mode == "fast":
         kernel_matmul_fast_launches += 1
     return out

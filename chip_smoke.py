@@ -17,8 +17,14 @@
    holds the result against the port's own float64 fit on the CPU;
 5. holds the kernel-free product kernel (K2) against its plain PyTorch
    version on the card at the streaming fit's shapes and at ragged ones:
-   precise mode, the ``init``/``out_scale`` epilogue, ``out`` aliasing
-   ``init``, fast (TF32) mode, and once against ``gauss_tile(X, X) @ V``;
+   precise mode (the split-TF32 tensor-core product), the
+   ``init``/``out_scale`` epilogue, ``out`` aliasing ``init``, fast (TF32)
+   mode, and once against ``gauss_tile(X, X) @ V``. Precise mode must pass
+   a gate at every shape: (a) inside ``k2_tol`` of the plain f32 version,
+   and (b) no further from the plain version in float64 than twice the
+   kernel's IEEE fp32 FMA pass is; both errors are printed. The plain
+   emulation of the split (``kernel_matmul_split_plain``) is held against
+   the kernel too;
 6. runs the streaming fit at N=50,000, P=20, ``neig=500`` (the route is
    chosen by size, K is never built), checks the K2 launch count and the
    widths of its products, then ``summary``, ``predict(se_pred=True)`` and
@@ -169,24 +175,39 @@ def streaming_data(n: int):
     return y, X
 
 
-def k2_bound_ms(n, p, m, fast):
+# tile·V passes the kernel runs on the tensor cores, per mode
+K2_PASSES = {"split": 3, "fast": 1}
+# the split's |Δ| per tile entry against the IEEE tile, relative: hi + lo
+# keeps 21 of the entry's 24 mantissa bits
+SPLIT_TILE_REL = 2.0 ** -21
+
+
+def k2_bound_ms(n, p, m, mode):
     """(ms, bound_by): the larger of the bytes (X, V read once, Y written
-    once) over the memory rate and the 2N²(P+m) operations over their
-    peaks (the rank-P part is fp32 in both modes)."""
+    once) over the memory rate and the operations the kernel runs over
+    their peaks: the 2N²P rank-P part in fp32, and tile·V as one (fast) or
+    three (split) TF32 passes of 2N²m each, or in fp32 (fma)."""
     t_bytes = 4 * (n * p + 2 * n * m) / PEAK_HBM
-    t_ops = 2 * n * n * p / PEAK_FP32 + 2 * n * n * m / (
-        PEAK_TF32 if fast else PEAK_FP32)
+    t_ops = 2 * n * n * p / PEAK_FP32
+    if mode == "fma":
+        t_ops += 2 * n * n * m / PEAK_FP32
+    else:
+        t_ops += K2_PASSES[mode] * 2 * n * n * m / PEAK_TF32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
 
 def check_k2(failures):
-    """K2 vs its plain version at every shape; returns the numbers of the
-    fit's power-block shape for the kernels line."""
+    """K2 vs its plain version at every shape, with the gate that lets the
+    split-TF32 product be precise mode; returns the numbers of the fit's
+    power-block shape for the kernels line."""
     from bigkrls_tpu_torch.ops import kernels, matvec
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     out = {}
+    print("K2 precise mode: split-TF32 (3 tensor-core passes, mma.sync "
+          "m16n8k8; m=540 runs as pairs of 320-wide blocks); gate (a) vs plain f32 within k2_tol, (b) error vs "
+          "plain f64 no more than twice the IEEE-FMA pass's")
     for n, p, m in K2_SHAPES:
         X = torch.randn((n, p), generator=gen, device="cuda")
         V = torch.randn((n, m), generator=gen, device="cuda")
@@ -194,9 +215,16 @@ def check_k2(failures):
         sigma, tol = float(p), k2_tol(n)
         Y = matvec.kernel_matmul(X, V, sigma)
         ref = matvec.kernel_matmul_plain(X, V, sigma)
+        ref64 = matvec.kernel_matmul_plain(X.double(), V.double(), sigma)
+        Yfma = matvec._kernel_matmul_cuda(X, V, sigma, None, None, False,
+                                          None, mode="fma")
         torch.cuda.synchronize()
         scale = ref.abs().max().item()
         err = (Y - ref).abs().max().item()
+        err64 = (Y - ref64).abs().max().item() / scale
+        fma64 = (Yfma - ref64).abs().max().item() / scale
+        fma32 = (Yfma - ref).abs().max().item() / scale
+        del ref64, Yfma
         # the epilogue, and out aliasing init (same bits as the unaliased run)
         Ye = matvec.kernel_matmul(X, V, sigma, init=init, out_scale=-2.5)
         ref_e = matvec.kernel_matmul_plain(X, V, sigma, init=init,
@@ -208,23 +236,36 @@ def check_k2(failures):
         alias_ok = Ya.data_ptr() == buf.data_ptr() and torch.equal(Ya, Ye)
         big = n >= 8192
         reps, warm = (5, 1) if big else (20, 3)
+        if (n, p, m) == (SN, SP, SQ):
+            reps, warm = 20, 2
         t_k = cuda_ms(lambda: matvec.kernel_matmul(X, V, sigma), reps, warm)
         t_p = cuda_ms(lambda: matvec.kernel_matmul_plain(X, V, sigma), reps,
                       warm)
-        print(f"K2 ({n},P={p},m={m}): max|d|/max|Y|={err / scale:.3e} "
-              f"(limit {tol:.1e}), epilogue {err_e:.3e}, alias ok="
+        print(f"K2 ({n},P={p},m={m}): gate (a) max|d|/max|Y| vs plain f32 "
+              f"{err / scale:.3e} (limit {tol:.1e}; IEEE-FMA pass "
+              f"{fma32:.3e}); gate (b) vs plain f64: split {err64:.3e}, "
+              f"IEEE-FMA pass {fma64:.3e}; epilogue {err_e:.3e}, alias ok="
               f"{alias_ok}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
               flush=True)
         if not err <= tol * scale:
-            failures.append(f"K2 ({n},{p},{m}): {err / scale} > {tol}")
+            failures.append(f"K2 ({n},{p},{m}) gate (a): {err / scale} > "
+                            f"{tol}")
+        if not err64 <= 2 * fma64:
+            failures.append(f"K2 ({n},{p},{m}) gate (b): split {err64} vs "
+                            f"f64 > 2 x the IEEE-FMA pass's {fma64}")
         if not err_e <= tol:
             failures.append(f"K2 ({n},{p},{m}) epilogue: {err_e} > {tol}")
         if not alias_ok:
             failures.append(f"K2 ({n},{p},{m}): out aliasing init differs")
         if (n, p, m) == (SN, SP, SQ):
-            bound, by = k2_bound_ms(n, p, m, False)
+            bound, by = k2_bound_ms(n, p, m, "split")
+            t_fma = cuda_ms(lambda: matvec._kernel_matmul_cuda(
+                X, V, sigma, None, None, False, None, mode="fma"), 5, 1)
             out.update(max_abs_err=err, max_rel_err=err / scale, ms=t_k,
-                       plain_ms=t_p, bound_ms=bound, bound_by=by)
+                       plain_ms=t_p, bound_ms=bound, bound_by=by,
+                       precise_mode="split-tf32", err_vs_f64=err64,
+                       fma_err_vs_f64=fma64, fma_ms=t_fma,
+                       fma_bound_ms=k2_bound_ms(n, p, m, "fma")[0])
             # fast mode against the plain version under TF32
             Yf = matvec.kernel_matmul(X, V, sigma, fast_accum=True)
             ref_f = matvec.kernel_matmul_plain(X, V, sigma, fast_accum=True)
@@ -237,34 +278,51 @@ def check_k2(failures):
             print(f"K2 fast ({n},P={p},m={m}): max|d|/max|Y|="
                   f"{err_f / scale:.3e} (limit {K2_FAST_TOL:g}); vs precise "
                   f"{(Yf - Y).abs().max().item() / scale:.3e}; kernel "
-                  f"{t_kf:.4f} ms, plain {t_pf:.4f} ms", flush=True)
+                  f"{t_kf:.4f} ms, plain {t_pf:.4f} ms; IEEE-FMA pass "
+                  f"{t_fma:.4f} ms", flush=True)
             if not err_f <= K2_FAST_TOL * scale:
                 failures.append(f"K2 fast: {err_f / scale} > {K2_FAST_TOL}")
             out.update(fast_max_abs_err=err_f, fast_ms=t_kf,
                        fast_plain_ms=t_pf,
-                       fast_bound_ms=k2_bound_ms(n, p, m, True)[0])
+                       fast_bound_ms=k2_bound_ms(n, p, m, "fast")[0])
             del Yf, ref_f
         del X, V, init, Y, ref, Ye, ref_e, buf, Ya
 
-    # against the dense kernel: K2's on-chip tile is K1's tile bit for bit
-    # (unit columns of V pick entries of K out unchanged), and K2(X, V)
-    # agrees with gauss_tile(X, X) @ V like with the plain version
+    # against the dense kernel: on the IEEE-FMA pass K2's on-chip tile is
+    # K1's tile bit for bit (unit columns of V pick entries of K out
+    # unchanged); the split's hi + lo keeps each entry to 2^-21 relative;
+    # K2(X, V) agrees with gauss_tile(X, X) @ V like with the plain
+    # version; and the plain emulation of the split agrees with the kernel
+    # to the rounding of two differently ordered f32 sums
     n = 8192
     X = torch.randn((n, SP), generator=gen, device="cuda")
     V = torch.randn((n, 64), generator=gen, device="cuda")
     K = kernels.gauss_tile(X, X, float(SP), False)
     E = torch.zeros((n, 64), device="cuda")
     E[torch.arange(64), torch.arange(64)] = 1.0
-    bit_ok = torch.equal(matvec.kernel_matmul(X, E, float(SP)), K[:, :64])
+    bit_ok = torch.equal(matvec._kernel_matmul_cuda(
+        X, E, float(SP), None, None, False, None, mode="fma"), K[:, :64])
+    tile_rel = ((matvec.kernel_matmul(X, E, float(SP)) - K[:, :64]).abs()
+                / K[:, :64]).max().item()
     ref = K @ V
-    err = ((matvec.kernel_matmul(X, V, float(SP)) - ref).abs().max().item()
-           / ref.abs().max().item())
+    Y = matvec.kernel_matmul(X, V, float(SP))
+    err = (Y - ref).abs().max().item() / ref.abs().max().item()
+    emu = matvec.kernel_matmul_split_plain(X, V, float(SP))
+    err_emu = (Y - emu).abs().max().item() / ref.abs().max().item()
     print(f"K2 vs gauss_tile(X,X) @ V at N={n}: {err:.3e} (limit "
-          f"{k2_tol(n):.1e}); tile bit-equal to K1's: {bit_ok}", flush=True)
+          f"{k2_tol(n):.1e}); vs its plain emulation {err_emu:.3e}; tile "
+          f"bit-equal to K1's on the IEEE-FMA pass: {bit_ok}; split tile "
+          f"max rel |d| {tile_rel:.3e} (limit 2^-21 = {SPLIT_TILE_REL:.3e})",
+          flush=True)
     if not err <= k2_tol(n):
         failures.append(f"K2 vs K1 @ V: {err} > {k2_tol(n)}")
+    if not err_emu <= k2_tol(n):
+        failures.append(f"K2 vs its plain emulation: {err_emu} > {k2_tol(n)}")
     if not bit_ok:
-        failures.append("K2's tile differs from K1's")
+        failures.append("K2's IEEE-FMA tile differs from K1's")
+    if not tile_rel <= SPLIT_TILE_REL:
+        failures.append(f"K2's split tile is {tile_rel} from K1's, over "
+                        f"{SPLIT_TILE_REL}")
     return out
 
 
@@ -516,7 +574,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{_build.last_build_seconds:.2f} s)", flush=True)
     for line in _build.last_build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("registers", "spill", "setmaxnreg")):
             print("  ptxas:" + line.split(":", 1)[-1])
 
     y, X = smoke_data()

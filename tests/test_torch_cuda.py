@@ -110,17 +110,22 @@ def _k2_tol(n):
     return 1e-5 * max(1.0, (n / 8192) ** 0.5)
 
 
-# (N, P, m): ragged N, P and m, a single column, an m several m-tiles
-# wide, and P past one 16-wide slice
+# (N, P, m): ragged N, P and m, a single column, the fit's width in a pair
+# of 320-wide blocks and in narrower ones, P past one 32-wide chunk at that
+# width, an m that is no multiple of 4 (the wrapper pads V's pitch) and the
+# derivatives stack's width
 K2_SHAPES = [(1000, 67, 130), (4097, 3, 5), (517, 20, 1), (2048, 20, 540),
-             (63, 2, 64), (65, 17, 65)]
+             (63, 2, 64), (65, 17, 65), (4096, 67, 540), (4096, 20, 541),
+             (4096, 20, 22)]
 
 
 @pytest.mark.parametrize("n,p,m", K2_SHAPES)
 def test_kernel_matmul_matches_plain(cuda, n, p, m):
-    """Precise mode vs the plain version, bare and with the epilogue; out
-    aliasing init gives the unaliased run's bits (sums are in a fixed
-    order, so runs repeat bit for bit)."""
+    """Precise mode (the split-TF32 product) vs the plain version, bare and
+    with the epilogue; out aliasing init gives the unaliased run's bits
+    (sums are in a fixed order, so runs repeat bit for bit). Against the
+    plain version in float64 the split is no further off than twice the
+    kernel's own IEEE fp32 FMA pass."""
     rng = np.random.default_rng(n + p + m)
     X, V, init = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
                                   device=cuda)
@@ -136,6 +141,13 @@ def test_kernel_matmul_matches_plain(cuda, n, p, m):
     assert Y.shape == (n, m) and Y.dtype == torch.float32
     assert (Y - ref).abs().max().item() <= _k2_tol(n) * ref.abs().max().item()
     assert torch.equal(Y, matvec.kernel_matmul(X, V, sigma))
+    ref64 = matvec.kernel_matmul_plain(X.double(), V.double(), sigma)
+    Yfma = matvec._kernel_matmul_cuda(X, V, sigma, None, None, False, None,
+                                      mode="fma")
+    assert ((Y - ref64).abs().max().item()
+            <= 2 * (Yfma - ref64).abs().max().item())
+    assert ((Yfma - ref).abs().max().item()
+            <= _k2_tol(n) * ref.abs().max().item())
     Ye = matvec.kernel_matmul(X, V, sigma, init=init, out_scale=-2.5)
     ref_e = matvec.kernel_matmul_plain(X, V, sigma, init=init, out_scale=-2.5)
     assert ((Ye - ref_e).abs().max().item()
@@ -163,31 +175,54 @@ def test_kernel_matmul_fast_mode(cuda, n, p, m):
     assert (Y - ref).abs().max().item() <= 5e-3 * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("fast", [False, True])
-def test_kernel_matmul_result_does_not_depend_on_tile_width(cuda, fast):
-    """The kernel picks the width of its output tile (64, 128 or 192
-    columns) from m; every output element is summed over j ascending
-    whatever the width, so forcing each width gives the same bits."""
+@pytest.mark.parametrize("mode", ["split", "fast", "fma"])
+def test_kernel_matmul_result_does_not_depend_on_tile_width(cuda, mode):
+    """The host picks the width of a block's output tile (64 or 256
+    columns, or a pair of blocks with 320 each) from the shape and the SM
+    count; every output element sees
+    the same operations in the same order whatever the width, so forcing
+    each width gives the same bits, and so does running twice."""
     rng = np.random.default_rng(11)
     n, p, m = 1500, 40, 300         # P > 32: two chunks of the rank-P chain
     X, V = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
                             device=cuda) for s in ((n, p), (n, m)))
-    outs = [matvec._kernel_matmul_cuda(X, V, float(p), None, None, fast, None,
-                                       m_tiles=g) for g in (0, 1, 2, 3)]
+    outs = [matvec._kernel_matmul_cuda(X, V, float(p), None, None, False,
+                                       None, n_tiles=nt, mode=mode)
+            for nt in (0, 1, 4, 5, 0)]
     for Y in outs[1:]:
         assert torch.equal(Y, outs[0])
 
 
+def test_kernel_matmul_split_matches_its_plain_emulation(cuda):
+    """The kernel's precise mode vs ``kernel_matmul_split_plain`` (the same
+    hi/lo split by integer masking, three f32 ``addmm``s): both round each
+    product alike and differ only in the order of their f32 sums."""
+    rng = np.random.default_rng(5)
+    n, p, m = 3000, 20, 100
+    X, V = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                            device=cuda) for s in ((n, p), (n, m)))
+    Y = matvec.kernel_matmul(X, V, float(p))
+    emu = matvec.kernel_matmul_split_plain(X, V, float(p))
+    assert (Y - emu).abs().max().item() <= _k2_tol(n) * emu.abs().max().item()
+
+
 def test_kernel_matmul_tile_is_the_dense_kernels(cuda):
-    """Unit columns of V pick entries of K out unchanged: K2's on-chip tile
-    equals ``gauss_tile(X, X)`` bit for bit, its inexact diagonal
-    included (K2, like the JAX product, writes no exact-1 diagonal)."""
+    """Unit columns of V pick entries of K out unchanged. On the IEEE fp32
+    FMA pass K2's on-chip tile equals ``gauss_tile(X, X)`` bit for bit, its
+    inexact diagonal included (K2, like the JAX product, writes no exact-1
+    diagonal). In precise mode the tile passes through hi + lo, two TF32
+    values, which keep 21 of its 24 mantissa bits: 2^-21 relative per
+    entry."""
     n = 700
     X = torch.as_tensor(np.random.default_rng(0).normal(size=(n, 20)),
                         dtype=torch.float32, device=cuda)
     K = kernels.gauss_tile(X, X, 20.0, False)
     E = torch.eye(n, device=cuda)[:, :130].contiguous()
-    assert torch.equal(matvec.kernel_matmul(X, E, 20.0), K[:, :130])
+    assert torch.equal(matvec._kernel_matmul_cuda(X, E, 20.0, None, None,
+                                                  False, None, mode="fma"),
+                       K[:, :130])
+    split = matvec.kernel_matmul(X, E, 20.0)
+    assert ((split - K[:, :130]).abs() / K[:, :130]).max().item() <= 2.0 ** -21
 
 
 def test_kernel_matmul_64bit_offsets(cuda):

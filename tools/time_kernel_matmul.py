@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
 """Time the kernel-free product kernel (K2) on one CUDA card.
 
-    python3 tools/time_kernel_matmul.py            # shapes x m-tile widths
-    python3 tools/time_kernel_matmul.py --ablate   # the kernel's parts
+    python3 tools/time_kernel_matmul.py [--shapes N,P,m ...] [--reps R]
+    python3 tools/time_kernel_matmul.py --ablate [--reps R]
 
-Without arguments: at each (N, P, m) shape, the CUDA kernel with its m-tile
-width forced to 64·G columns (G = 1, 2, 3) and chosen by the kernel (G = 0),
-in precise and fast (TF32) mode, beside the plain PyTorch version in both
-modes; checks that the result is bit-equal across G and prints the errors
-against the plain version. Times are means of 3 CUDA-event-timed launches
-after one warm-up, in milliseconds.
+Without ``--ablate``: at each (N, P, m) shape, the CUDA kernel in its three
+modes, as columns: split (precise: three TF32 tensor-core passes), fast (one
+TF32 pass) and fma (the IEEE fp32 pass without tensor cores), with the width
+of the block's tile chosen by the host's rule and forced to every width
+that covers no more than twice the columns needed (320 is half of a pair of
+blocks that share their K tiles). Beside them the plain
+PyTorch version in f32 and under TF32. Prints each mode's error against the
+plain version run in float64 on the card (of max|Y|), and checks that the
+result is bit-equal across widths and across two runs. Times are medians of
+R (default 5) CUDA-event-timed launches after one warm-up, in milliseconds.
 
-With ``--ablate``: at (50000, 20, 540) the kernel is rebuilt with parts
-switched off at compile time (``-DBIGKRLS_ABLATE_*``: the tile·V pass, the
-V slice's loads, expf and the division, the rank-P FMAs); the differences
-attribute the kernel's time to its parts, where no profiler can run. The
+With ``--ablate``: at (50000, 20, 540) and (50000, 20, 22) the kernel is
+rebuilt with parts switched off at compile time (``-DBIGKRLS_ABLATE_*``):
+the tensor-core pass (MMA), the V slices' copies (VLOAD), expf and the
+division (EXP), the rank-P FMAs (GRAM); and once with no producer starting
+a tile before its previous one has been read (NO_OVERLAP). The differences
+attribute the kernel's time to its parts, where no profiler can run; split
+minus fast is what the two extra passes and the hi/lo split cost. The
 ablated kernels compute garbage and are built into their own libraries.
 No JAX is used.
 """
 from __future__ import annotations
 
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -29,23 +37,34 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 SHAPES = [(1000, 67, 130), (4097, 3, 5), (8192, 20, 1100), (50000, 20, 22),
-          (50000, 20, 1), (50000, 20, 540), (50000, 67, 540),
-          (50000, 20, 541)]
-ABLATIONS = [(), ("PASS",), ("PASS", "VLOAD"), ("PASS", "VLOAD", "EXP"),
-             ("PASS", "VLOAD", "EXP", "GRAM")]
+          (50000, 20, 1), (50000, 20, 230), (50000, 20, 540),
+          (50000, 67, 540), (50000, 20, 541)]
+MODES = ("split", "fast", "fma")
+ABLATIONS = [(), ("NO_OVERLAP",), ("MMA",), ("MMA", "VLOAD"),
+             ("MMA", "VLOAD", "EXP"), ("MMA", "VLOAD", "EXP", "GRAM")]
+ABLATE_SHAPES = [(50000, 20, 540), (50000, 20, 22)]
 
 
-def ms(fn, reps: int = 3) -> float:
+def ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    times = []
     for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def print_ptxas(log: str):
+    for line in log.splitlines():
+        if any(w in line for w in ("registers", "spill", "warning",
+                                   "setmaxnreg")):
+            print("  ptxas:" + line.split(":", 1)[-1])
 
 
 def main() -> int:
@@ -60,55 +79,85 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    args = sys.argv[1:]
+    reps = int(args[args.index("--reps") + 1]) if "--reps" in args else 5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def kernel(X, V, sigma, fast, G):
-        return matvec._kernel_matmul_cuda(X, V, sigma, None, None, fast,
-                                          None, G)
+    def kernel(X, V, sigma, mode, nt=0):
+        return matvec._kernel_matmul_cuda(X, V, sigma, None, None, False,
+                                          None, n_tiles=nt, mode=mode)
 
-    if "--ablate" in sys.argv:
-        n, p, m = 50000, 20, 540
-        X = torch.randn((n, p), generator=gen, device="cuda")
-        V = torch.randn((n, m), generator=gen, device="cuda")
+    if "--ablate" in args:
+        data = []
+        for n, p, m in ABLATE_SHAPES:
+            data.append((torch.randn((n, p), generator=gen, device="cuda"),
+                         torch.randn((n, m), generator=gen, device="cuda")))
         base = _build.COMPILE_FLAGS
         for off in ABLATIONS:
             _build.COMPILE_FLAGS = base + tuple(
                 f"-DBIGKRLS_ABLATE_{name}" for name in off)
             _build.library.cache_clear()
             _build.library()
-            row = [f"G={G} {'fast' if fast else 'precise'} "
-                   f"{ms(lambda: kernel(X, V, float(p), fast, G)):.2f}"
-                   for G in (1, 3) for fast in (False, True)]
-            print(f"without {'+'.join(off) or 'nothing'}: " + ", ".join(row),
+            row = []
+            for X, V in data:
+                p, m = X.shape[1], V.shape[1]
+                row.append(f"m={m}: " + ", ".join(
+                    f"{mode} "
+                    f"{ms(lambda: kernel(X, V, float(p), mode), reps):.2f}"
+                    for mode in MODES))
+            print(f"without {'+'.join(off) or 'nothing'}: " + "; ".join(row),
                   flush=True)
         return 0
 
+    shapes = SHAPES
+    if "--shapes" in args:
+        shapes = []
+        for a in args[args.index("--shapes") + 1:]:
+            if a.startswith("--"):
+                break
+            shapes.append(tuple(int(v) for v in a.split(",")))
     _build.library()
-    for line in _build.last_build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:" + line.split(":", 1)[-1])
-    for n, p, m in SHAPES:
+    print(f"nvcc {_build.last_build_seconds:.1f} s")
+    print_ptxas(_build.last_build_log)
+    ok = True
+    for n, p, m in shapes:
         X = torch.randn((n, p), generator=gen, device="cuda")
         V = torch.randn((n, m), generator=gen, device="cuda")
         sigma = float(p)
+        ref64 = matvec.kernel_matmul_plain(X.double(), V.double(), sigma)
+        scale = ref64.abs().max().item()
         ref = matvec.kernel_matmul_plain(X, V, sigma)
         ref_f = matvec.kernel_matmul_plain(X, V, sigma, fast_accum=True)
-        scale = ref.abs().max().item()
-        first = kernel(X, V, sigma, False, 1)
         print(f"({n},{p},{m}): plain "
-              f"{ms(lambda: matvec.kernel_matmul_plain(X, V, sigma)):.3f}, "
-              f"plain TF32 "
-              f"{ms(lambda: matvec.kernel_matmul_plain(X, V, sigma, fast_accum=True)):.3f}")
-        for G in (0, 1, 2, 3):
-            Y = kernel(X, V, sigma, False, G)
-            Yf = kernel(X, V, sigma, True, G)
-            torch.cuda.synchronize()
-            print(f"   G={G}: precise "
-                  f"{ms(lambda: kernel(X, V, sigma, False, G)):.3f} (err "
-                  f"{(Y - ref).abs().max().item() / scale:.2e}, bit-equal "
-                  f"to G=1: {torch.equal(Y, first)}), fast "
-                  f"{ms(lambda: kernel(X, V, sigma, True, G)):.3f} (err "
-                  f"{(Yf - ref_f).abs().max().item() / scale:.2e})",
-                  flush=True)
+              f"{ms(lambda: matvec.kernel_matmul_plain(X, V, sigma), reps):.3f}"
+              f" (err vs f64 {(ref - ref64).abs().max().item() / scale:.2e}),"
+              f" plain TF32 "
+              f"{ms(lambda: matvec.kernel_matmul_plain(X, V, sigma, fast_accum=True), reps):.3f}"
+              f" (err {(ref_f - ref64).abs().max().item() / scale:.2e})")
+        del ref, ref_f
+        plan = matvec._tile_plan(n, p, m, sms)
+        widths = [0] + [nt for nt in matvec._N_TILES
+                        if nt == plan or 64 * nt <= 2 * max(m, 64)]
+        first = {}
+        for nt in widths:
+            cells = []
+            for mode in MODES:
+                Y = kernel(X, V, sigma, mode, nt)
+                again = kernel(X, V, sigma, mode, nt)
+                torch.cuda.synchronize()
+                same = torch.equal(Y, again) and torch.equal(
+                    Y, first.setdefault(mode, Y))
+                ok &= same
+                err = (Y - ref64).abs().max().item() / scale
+                cells.append(
+                    f"{mode} {ms(lambda: kernel(X, V, sigma, mode, nt), reps):.3f}"
+                    f" (err {err:.2e}{'' if same else ', BITS DIFFER'})")
+            print(f"   width {'rule -> ' + str(64 * plan) if nt == 0 else 64 * nt}: "
+                  + ", ".join(cells), flush=True)
+        del X, V, ref64, first
+    if not ok:
+        print("results differ between runs or widths", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -112,8 +112,8 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, with every C function's signature set."""
     lib = ctypes.CDLL(str(build()))
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.gauss_tile_f32.argtypes = [p, p, p, p, i64, i64, i64, ctypes.c_float,
-                                   p, ctypes.c_int, p]
+    lib.gauss_tile_f32.argtypes = [p, p, i64, i64, i64, p, ctypes.c_float,
+                                   p, *[ctypes.c_int] * 4, p]
     lib.gauss_tile_f32.restype = ctypes.c_int
     lib.kernel_matmul_f32.argtypes = [p, p, i64, p, p, p, i64, i64, i64,
                                       ctypes.c_float, ctypes.c_float,

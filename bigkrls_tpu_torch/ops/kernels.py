@@ -22,6 +22,9 @@ turns the kernel into one (N, P)×(P, N) product plus broadcast adds and an
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 # launches of the CUDA kernel made through ``gauss_tile`` (CPU calls, which
@@ -83,8 +86,123 @@ def gauss_tile(A, B, sigma: float, symmetric_diag: bool):
     return _gauss_tile_cuda(A, B, float(sigma), symmetric_diag)
 
 
-def _gauss_tile_cuda(A, B, sigma: float, symmetric_diag: bool):
-    global gauss_tile_launches
+# the kernel's square tiles, by edge: the blocks of each that share an SM,
+# and what an entry of it costs beside one of the smaller tile's (measured:
+# a thread of the larger tile owns 8 x 8 outputs instead of 8 x 4 and reads
+# its operands from shared memory half as often)
+_TILES = {64: (4, 1.0), 128: (2, 0.8)}
+# what an entry's quotient and expf cost, in steps of the rank-P chain
+_ENTRY_STEPS = 30
+# the widest P the kernel stages whole; wider P runs in slices of _SLICE
+_WHOLE_P, _SLICE = 72, 32
+_MAX_BLOCKS = 2 ** 31 - 1       # CUDA's limit on a grid's x dimension
+_lib = None                     # the loaded kernel library, after first use
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    """SMs of CUDA device ``index`` (None: the current one); asked once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tri_count(rows: int) -> int:
+    """Tiles (I, J) with J >= I among ``rows`` tile rows."""
+    return rows * (rows + 1) // 2
+
+
+def _tri_decode(t: int):
+    """The t-th pair (r, c), c <= r, of the lower triangle in row-major
+    order, t = r(r+1)/2 + c: the kernel's map from a block index to its
+    tile (I, J) = (c, r), line for line. The square root is a first guess;
+    the loops make the answer exact."""
+    r = int((math.sqrt(8.0 * t + 1.0) - 1.0) * 0.5)
+    while r * (r + 1) // 2 > t:
+        r -= 1
+    while (r + 1) * (r + 2) // 2 <= t:
+        r += 1
+    return r, t - r * (r + 1) // 2
+
+
+def _blocks(m: int, n: int, tile: int, mirror: bool) -> int:
+    """Blocks of the grid: one per tile, only those with J >= I under
+    ``mirror``."""
+    rows, cols = -(-m // tile), -(-n // tile)
+    return _tri_count(rows) if mirror else rows * cols
+
+
+def _tile_plan(m: int, n: int, p: int, mirror: bool, sms: int) -> int:
+    """The edge of the kernel's square tile, 64 or 128, as a pure function
+    of the shape and the card's SM count.
+
+    The blocks run in waves of ``sms`` x (blocks of that tile an SM holds),
+    and the blocks on an SM share its issue slots, so a wave costs (blocks
+    resident on an SM) x (the tile's entries) x (P chain steps + the entry
+    arithmetic) x the tile's cost per entry. The tile with the least waves
+    x that wins: 64 wherever 128 would end on a mostly empty wave or cover
+    rows that do not exist (the fit's 3106 rows, predict's 10), 128 from a
+    few thousand rows on. Every entry sees the same operations in the same
+    order whatever the tile, so the choice does not change the result."""
+    def cost(tile):
+        per_sm, per_entry = _TILES[tile]
+        blocks = _blocks(m, n, tile, mirror)
+        waves = -(-blocks // (sms * per_sm))
+        resident = min(per_sm, -(-blocks // sms))
+        return (waves * resident * tile * tile * (p + _ENTRY_STEPS)
+                * per_entry)
+
+    return min(_TILES, key=cost)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(m: int, n: int, p: int, mirror: bool, sms: int, tile):
+    """``(tile, slice width)`` of one launch, worked out once per shape;
+    ``tile`` None takes :func:`_tile_plan`'s. Raises on a tile the kernel
+    does not have and on a grid past CUDA's limit."""
+    if tile is None:
+        tile = _tile_plan(m, n, p, mirror, sms)
+    elif tile not in _TILES:
+        raise ValueError(f"gauss_tile: tile must be one of {tuple(_TILES)}")
+    if _blocks(m, n, tile, mirror) > _MAX_BLOCKS:
+        raise ValueError(f"gauss_tile: {m} x {n} outputs exceed the grid "
+                         "limit")
+    return tile, _slice_width(p)
+
+
+def _slice_width(p: int) -> int:
+    """Columns of X staged in shared memory at once: P rounded up to a
+    multiple of 4 where that is at most 72 (one stage), else 32 (two
+    stages, one in flight)."""
+    p4 = -(-p // 4) * 4
+    return p4 if p4 <= _WHOLE_P else _SLICE
+
+
+def _shared_bytes(tile: int, p: int) -> int:
+    """Dynamic shared memory of one block: the staged rows of A and B at a
+    pitch of 4 x odd floats, or the finished tile at a pitch of tile + 1
+    that reuses the same memory, whichever is larger."""
+    kc = _slice_width(p)
+    pitch = kc if (kc // 4) % 2 else kc + 4
+    stages = 2 if -(-p // 4) * 4 > kc else 1
+    return 4 * max(stages * 2 * tile * pitch, tile * (tile + 1))
+
+
+def _padded_pitch(p: int, *pointers) -> int:
+    """The row pitch, in floats, of the copy of X that the kernel's 16-byte
+    copies need, or 0 where X serves as it is: P a multiple of 4 and every
+    pointer 16-byte aligned. The copy has zeros in the columns from P to
+    the pitch (a zero factor leaves the rank-P chain bit-unchanged)."""
+    if p % 4 == 0 and all(ptr % 16 == 0 for ptr in pointers):
+        return 0
+    return -(-p // 4) * 4
+
+
+def _gauss_tile_cuda(A, B, sigma: float, symmetric_diag: bool, tile=None,
+                     mirror: bool | None = None):
+    """Launch the CUDA kernel. ``tile`` forces the tile's edge (64 or 128);
+    None takes :func:`_tile_plan`'s. ``mirror=False`` computes every tile
+    of a symmetric call. The result depends on neither, bit for bit; tools
+    and tests use them."""
+    global gauss_tile_launches, _lib
     if A.device.type != "cuda" or B.device != A.device:
         raise ValueError(f"gauss_tile: A and B must lie on one CUDA device, "
                          f"got {A.device} and {B.device}")
@@ -98,23 +216,36 @@ def _gauss_tile_cuda(A, B, sigma: float, symmetric_diag: bool):
     if m == 0 or n == 0 or p == 0:
         raise ValueError(f"gauss_tile: empty operand {tuple(A.shape)}, "
                          f"{tuple(B.shape)}")
-    if (m + 63) // 64 > 65535:
-        raise ValueError(f"gauss_tile: M={m} rows exceed the grid limit")
     if not sigma > 0:
         raise ValueError("gauss_tile: sigma must be positive")
-    from ._build import library
-    lib = library()
-    out = torch.empty((m, n), dtype=torch.float32, device=A.device)
-    same = A.data_ptr() == B.data_ptr() and m == n
-    ra = torch.empty((m,), dtype=torch.float32, device=A.device)
-    rb = ra if same else torch.empty((n,), dtype=torch.float32,
-                                     device=A.device)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.gauss_tile_f32(A.data_ptr(), B.data_ptr(), ra.data_ptr(),
-                                 rb.data_ptr(), m, n, p, sigma,
-                                 out.data_ptr(), int(bool(symmetric_diag)),
-                                 stream)
+    pa, pb = A.data_ptr(), B.data_ptr()
+    same = pa == pb and m == n
+    if mirror is None:
+        mirror = same
+    elif mirror and not same:
+        raise ValueError("gauss_tile: mirror needs A and B to be the same "
+                         "rows")
+    index = A.device.index
+    tile, kc = _launch_plan(m, n, p, mirror, _sm_count(index), tile)
+    if _lib is None:
+        from ._build import library
+        _lib = library()
+    out = A.new_empty((m, n))
+    pitch = _padded_pitch(p, pa, pb)
+    scratch = None
+    if pitch:
+        scratch = A.new_empty((max(m, n) if pa == pb else m + n, pitch))
+    # the stream's handle without building a Stream object: the wrapper's
+    # host time is most of a call that the card answers in 6 to 40 us
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    args = (pa, pb, m, n, p, None if scratch is None else scratch.data_ptr(),
+            sigma, out.data_ptr(), int(bool(symmetric_diag)), int(mirror),
+            tile, kc, stream)
+    if torch.cuda.current_device() == index:
+        err = _lib.gauss_tile_f32(*args)
+    else:
+        with torch.cuda.device(A.device):
+            err = _lib.gauss_tile_f32(*args)
     if err != 0:
         raise RuntimeError(f"gauss_tile: CUDA launch failed with error {err}")
     gauss_tile_launches += 1

@@ -40,11 +40,9 @@ measured against; no public argument reaches it.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from .kernels import _sqdist, _use_tile
+from .kernels import _sm_count, _sqdist, _use_tile
 
 # launches of the CUDA kernel made through ``kernel_matmul`` (calls that
 # run the plain version do not count); fast-mode launches count in both
@@ -248,12 +246,6 @@ def _tile_plan(n: int, p: int, m: int, sms: int) -> int:
         return waves * max(64 * nt, build)
 
     return min(_N_TILES, key=lambda nt: (cost(nt), -nt))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index) -> int:
-    """SMs of CUDA device ``index`` (None: the current one); asked once."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _stage_v(V):

@@ -9,7 +9,11 @@
    build time;
 3. holds the Gaussian tile kernel (K1) against its plain PyTorch version
    on the card at the fit's and predict's shapes (max |Δ| ≤ 1e-5 in f32,
-   bit-symmetric, exact diagonal) and times both with CUDA events;
+   bit-symmetric, exact diagonal), and against the frozen first design of
+   the kernel (``tools/gauss_kernel_first.cu``, built here as an oracle):
+   the same bits at every shape and three bandwidths; times the two side
+   by side (first / new / new / first, single launches, 20 in a loop, and
+   a replayed CUDA graph of 20) and the plain version;
 4. runs the default ``fit`` at N=3106, P=67 (the election data's width)
    on a seeded low-rank design whose kernel spectrum decays like the
    election data's, so the fit takes the adaptive route through K1; then
@@ -44,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,6 +61,12 @@ SEED = 2016
 K1_SHAPES = [(N, N, P, True), (1000, 1000, 5, True), (4097, 4097, 3, True),
              (16384, 16384, 20, True), (517, N, P, False)]
 K1_TOL = 1e-5   # f32 rank-P cancellation at r ≈ P, damped by exp()
+# beside sigma = P, the bandwidths at which K1 must reproduce the bits of
+# its frozen first design (tools/gauss_kernel_first.cu)
+K1_SIGMAS = (0.7131, 1e-3)
+# (M, N, P, same rows, symmetric_diag), for the bit comparison only
+K1_BIT_SHAPES = [(130, 130, 200, True, True), (1, 70, 2, False, False),
+                 (N, N, P, True, False)]
 
 # end-to-end tolerances, GPU f32 vs CPU f64 (tests/test_adaptive.py:181-183)
 TOL_LAMBDA_REL = 2e-2   # bounded by the golden search's own stopping rule
@@ -95,21 +106,72 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def check_k1(X_std, failures):
-    """K1 vs its plain version at every shape; returns (max |Δ|, kernel
-    ms, plain ms) at the fit's shape."""
+def looped_ms(fn, reps: int = 20) -> float:
+    """``reps`` launches inside one pair of events, per launch: the larger
+    of the host's and the device's time per call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """``reps`` launches captured into one CUDA graph and replayed, per
+    launch: the device's time without the host's share of a call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k1_bound_ms(m, n, p):
+    """(ms, bound_by): 2MNP fp32 operations over the SIMT peak, or A and B
+    read once and K written once over the memory rate, whichever is larger;
+    counted for the whole matrix, whether or not the kernel mirrors tiles."""
+    t_ops = 2 * m * n * p / PEAK_FP32
+    t_bytes = 4 * (m * p + n * p + m * n) / PEAK_HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def k1_operands(m, n, p, sym, X_std, gen):
+    if (m, n, p) == (N, N, P):
+        A = X_std
+    else:
+        A = torch.randn((m, p), generator=gen, device="cuda")
+    B = A if sym else torch.randn((n, p), generator=gen, device="cuda")
+    if (m, n, p) == (517, N, P):
+        B = X_std
+    return A, B
+
+
+def check_k1(X_std, k1_first, failures):
+    """K1 vs its plain version at every shape, and vs ``k1_first``, the
+    frozen first design of the kernel: bit-equal, and timed side by side
+    (first / new / new / first). Returns the numbers of the kernels line."""
     from bigkrls_tpu_torch.ops import kernels
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    worst, fit_ms = 0.0, None
+    worst, out = 0.0, {}
     for m, n, p, sym in K1_SHAPES:
-        if (m, n, p) == (N, N, P):
-            A = X_std
-        else:
-            A = torch.randn((m, p), generator=gen, device="cuda")
-        B = A if sym else torch.randn((n, p), generator=gen, device="cuda")
-        if (m, n, p) == (517, N, P):
-            B = X_std
+        A, B = k1_operands(m, n, p, sym, X_std, gen)
         sigma = float(p)
         K = kernels.gauss_tile(A, B, sigma, sym)
         ref = kernels.gauss_tile_plain(A, B, sigma, sym)
@@ -118,20 +180,65 @@ def check_k1(X_std, failures):
         worst = max(worst, err)
         sym_ok = (not sym) or (torch.equal(K, K.T)
                                and bool(torch.all(torch.diagonal(K) == 1.0)))
-        t_k = cuda_ms(lambda: kernels.gauss_tile(A, B, sigma, sym))
+        del ref
+        bits = {s: torch.equal(kernels.gauss_tile(A, B, s, sym),
+                               k1_first(A, B, s, sym))
+                for s in (sigma, *K1_SIGMAS)}
+        del K
+
+        def new():
+            return kernels.gauss_tile(A, B, sigma, sym)
+
+        def first():
+            return k1_first(A, B, sigma, sym)
+
+        t = [cuda_ms(first), cuda_ms(new), cuda_ms(new), cuda_ms(first)]
         t_p = cuda_ms(lambda: kernels.gauss_tile_plain(A, B, sigma, sym))
-        print(f"K1 ({m},{n},P={p},sym={sym}): max|d|={err:.3e} "
-              f"symmetric/diag ok={sym_ok} kernel {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms", flush=True)
+        loop, loop_first = looped_ms(new), looped_ms(first)
+        dev, dev_first = graph_ms(new), graph_ms(first)
+        bound, by = k1_bound_ms(m, n, p)
+        print(f"K1 ({m},{n},P={p},sym={sym}): max|d|={err:.3e} vs plain, "
+              f"symmetric/diag ok={sym_ok}, bit-equal to the first design at "
+              f"sigma {list(bits)}: {all(bits.values())}; single launches "
+              f"first/new/new/first {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / "
+              f"{t[3]:.4f} ms; looped new {loop:.4f}, first {loop_first:.4f}; "
+              f"graph new {dev:.4f}, first {dev_first:.4f}; plain {t_p:.4f} "
+              f"ms; bound {bound:.4f} ms ({by})", flush=True)
         if not err <= K1_TOL:
             failures.append(f"K1 {m}x{n} P={p}: max|d| {err} > {K1_TOL}")
         if not sym_ok:
             failures.append(f"K1 {m}x{n} P={p}: not bit-symmetric with "
                             "an exact diagonal")
+        if not all(bits.values()):
+            failures.append(f"K1 {m}x{n} P={p}: differs from the first "
+                            f"design's bits at sigma "
+                            f"{[s for s, ok in bits.items() if not ok]}")
         if (m, n, p, sym) == (N, N, P, True):
-            fit_ms = (t_k, t_p)
-        del K, ref
-    return worst, fit_ms
+            out.update(ms=(t[1] + t[2]) / 2, ms_pr3=(t[0] + t[3]) / 2,
+                       plain_ms=t_p, bound_ms=bound, bound_by=by,
+                       ms_looped=loop, ms_looped_pr3=loop_first,
+                       ms_graph=dev, ms_graph_pr3=dev_first)
+        if (m, n, p) == (16384, 16384, 20):
+            out.update(ms_16384_20=(t[1] + t[2]) / 2,
+                       ms_pr3_16384_20=(t[0] + t[3]) / 2,
+                       ms_graph_16384_20=dev, bound_ms_16384_20=bound)
+        del A, B
+
+    # shapes past the fit's: a wide P in slices, a one-row cross call, and
+    # the same rows without the exact-1 diagonal (the diagonal is computed)
+    for m, n, p, sym, diag in K1_BIT_SHAPES:
+        A, B = k1_operands(m, n, p, sym, X_std, gen)
+        bits = {s: torch.equal(kernels.gauss_tile(A, B, s, diag),
+                               k1_first(A, B, s, diag))
+                for s in (float(p), *K1_SIGMAS)}
+        print(f"K1 ({m},{n},P={p},same rows={sym},diag={diag}): bit-equal "
+              f"to the first design at sigma {list(bits)}: "
+              f"{all(bits.values())}", flush=True)
+        if not all(bits.values()):
+            failures.append(f"K1 {m}x{n} P={p} diag={diag}: differs from "
+                            "the first design's bits")
+    out["max_abs_err"] = worst
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -557,6 +664,8 @@ def main() -> int:
         return 1
     import bigkrls_tpu_torch as bt
     from bigkrls_tpu_torch.ops import _build, kernels
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import k1_oracle
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -570,9 +679,12 @@ def main() -> int:
     failures = []
 
     t0 = time.perf_counter()
+    oracle_build = k1_oracle.start_build()   # beside the package's nvccs
     _build.library()
+    k1_first = k1_oracle.load(oracle_build)
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{_build.last_build_seconds:.2f} s)", flush=True)
+          f"{_build.last_build_seconds:.2f} s; K1's frozen first design "
+          f"beside it)", flush=True)
     for line in _build.last_build_log.splitlines():
         if any(w in line for w in ("registers", "spill", "setmaxnreg")):
             print("  ptxas:" + line.split(":", 1)[-1])
@@ -581,7 +693,7 @@ def main() -> int:
     Xd = torch.as_tensor(X, dtype=torch.float32, device="cuda")
     X_std = ((Xd - Xd.mean(0)) / Xd.std(0, correction=1)).contiguous()
     torch.backends.cuda.matmul.allow_tf32 = False
-    k1_err, (k1_ms, plain_ms) = check_k1(X_std, failures)
+    k1 = check_k1(X_std, k1_first, failures)
 
     # ---- the dense main path: fit, summary, predict on the card ----
     kernels.gauss_tile_launches = 0
@@ -603,9 +715,13 @@ def main() -> int:
                         "(expected one each)")
     check_outputs(m, s, pred, failures)
 
-    t0 = time.perf_counter()
-    m_warm = bt.fit(y, X, device="cuda", noisy=False)
-    print(f"warm fit: {time.perf_counter() - t0:.3f} s, timings "
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m_warm = bt.fit(y, X, device="cuda", noisy=False)
+        warm.append(time.perf_counter() - t0)
+    print(f"warm fit: {statistics.median(warm):.3f} s (3 fits: "
+          f"{', '.join(f'{t:.3f}' for t in warm)}), timings of the last "
           f"{json.dumps(m_warm.timings)}")
     t0 = time.perf_counter()
     m_plain = bt.fit(y, X, device="cuda", noisy=False, kernel_impl="plain")
@@ -627,19 +743,11 @@ def main() -> int:
     streaming_vs_dense(bt, failures)
     chebyshev_phase(failures)
 
-    # K1's bound at the dense fit's shape: 2N²P fp32 operations; X read
-    # (twice, as A and B) and K written once
-    k1_ops = 2 * N * N * P / PEAK_FP32
-    k1_bytes = 4 * (2 * N * P + N * N) / PEAK_HBM
     print(json.dumps({"kernels": [{
         "name": "gauss_tile", "route": "cuda",
         "source": "bigkrls_tpu_torch/csrc/gauss_kernel.cu",
         "replaces": "bigkrls_tpu/ops/kernels.py:87",
-        "launches": launches, "max_abs_err": k1_err,
-        "ms": k1_ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(k1_ops, k1_bytes),
-        "bound_by": "operations" if k1_ops > k1_bytes else "bytes",
-        "library_ms": None}, {
+        "launches": launches, "library_ms": None, **k1}, {
         "name": "kernel_matmul", "route": "cuda",
         "source": "bigkrls_tpu_torch/csrc/kernel_matmul.cu",
         "replaces": "bigkrls_tpu/ops/matvec.py:139",

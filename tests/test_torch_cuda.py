@@ -22,9 +22,16 @@ def cuda():
 
 
 # (M, N, P, symmetric): the fit's shapes, ragged edges, a wide P and a
-# predict-shaped cross kernel
+# predict-shaped cross kernel; then N one below, at and one above an edge
+# of each tile (64, 128), P on both sides of the 16-byte pitch (1, 3, 4, 5,
+# 67, 68) and of the whole-P staging (72, 73, 200, 513: slices of 32), and
+# one-row and one-column cross calls
 SHAPES = [(3106, 3106, 67, True), (1000, 1000, 5, True), (4097, 4097, 3, True),
-          (130, 130, 200, True), (517, 3106, 67, False), (1, 70, 2, False)]
+          (130, 130, 200, True), (517, 3106, 67, False), (1, 70, 2, False),
+          (63, 63, 1, True), (64, 64, 3, True), (65, 65, 4, True),
+          (127, 127, 5, True), (128, 128, 67, True), (129, 129, 68, True),
+          (257, 257, 513, True), (300, 300, 72, True), (300, 300, 73, True),
+          (70, 1, 2, False), (1, 1, 1, True), (129, 65, 200, False)]
 
 
 @pytest.mark.parametrize("m,n,p,sym", SHAPES)
@@ -50,9 +57,100 @@ def test_gauss_tile_matches_plain(cuda, m, n, p, sym):
         assert torch.all(torch.diagonal(K) == 1.0)
 
 
+@pytest.mark.parametrize("m,n,p,sym", SHAPES)
+def test_gauss_tile_result_does_not_depend_on_the_tile(cuda, m, n, p, sym):
+    """The host picks the tile (64 or 128) and, for the same rows, mirrors
+    the tiles above the diagonal; every entry sees the same operations in
+    the same order either way, so forcing each tile, and computing every
+    tile of a symmetric call, gives the same bits."""
+    rng = np.random.default_rng(m + 3 * n + p)
+    A = torch.as_tensor(rng.normal(size=(m, p)), dtype=torch.float32,
+                        device=cuda)
+    B = A if sym else torch.as_tensor(rng.normal(size=(n, p)),
+                                      dtype=torch.float32, device=cuda)
+    K = kernels.gauss_tile(A, B, float(p), sym)
+    for tile in kernels._TILES:
+        for mirror in ((None, False) if sym else (None,)):
+            Kt = kernels._gauss_tile_cuda(A, B, float(p), sym, tile=tile,
+                                          mirror=mirror)
+            assert torch.equal(Kt, K), (tile, mirror)
+
+
+def test_gauss_tile_same_rows_without_the_exact_diagonal(cuda):
+    """A and B the same rows with ``symmetric_diag=False`` (the product
+    kernel's tile identity is checked against this call): the tiles are
+    mirrored all the same, K is bit-symmetric, and the diagonal holds the
+    computed value (the run that computes every tile gives the same bits;
+    within rounding of 1), where ``symmetric_diag=True`` writes exactly 1;
+    off the diagonal the two calls agree bit for bit."""
+    rng = np.random.default_rng(4)
+    X = torch.as_tensor(rng.normal(size=(700, 20)), dtype=torch.float32,
+                        device=cuda)
+    K = kernels.gauss_tile(X, X, 20.0, False)
+    K1 = kernels.gauss_tile(X, X, 20.0, True)
+    whole = kernels._gauss_tile_cuda(X, X, 20.0, False, mirror=False)
+    assert torch.equal(K, K.T) and torch.equal(K, whole)
+    d = torch.diagonal(K)
+    assert torch.all((d - 1.0).abs() <= 1e-5)
+    assert torch.all(torch.diagonal(K1) == 1.0)
+    off = ~torch.eye(700, dtype=torch.bool, device=cuda)
+    assert torch.equal(K[off], K1[off])
+
+
+def test_gauss_tile_padded_copy_does_not_read_stale_memory(cuda):
+    """P = 67 is staged through a copy with a pitch of 68. Its pad column
+    must be written as zeros: with the allocator's free blocks full of
+    NaN, a pad left as it was found would put NaN into every chain."""
+    rng = np.random.default_rng(6)
+    X = torch.as_tensor(rng.normal(size=(900, 67)), dtype=torch.float32,
+                        device=cuda)
+    Y = torch.as_tensor(rng.normal(size=(300, 67)), dtype=torch.float32,
+                        device=cuda)
+    want = kernels.gauss_tile(X, X, 67.0, True)
+    want_c = kernels.gauss_tile(Y, X, 67.0, False)
+    for rows in (900, 1200):
+        junk = torch.full((rows, 68), float("nan"), device=cuda)
+        del junk                      # back to the allocator, NaN inside
+        assert torch.equal(kernels.gauss_tile(X, X, 67.0, True), want)
+        junk = torch.full((rows, 68), float("nan"), device=cuda)
+        del junk
+        assert torch.equal(kernels.gauss_tile(Y, X, 67.0, False), want_c)
+    assert bool(torch.isfinite(want).all() and torch.isfinite(want_c).all())
+    # a misaligned view (P a multiple of 4, pointer 4 bytes off) is copied too
+    flat = torch.as_tensor(rng.normal(size=(1 + 200 * 68,)),
+                           dtype=torch.float32, device=cuda)
+    V = flat[1:].view(200, 68)
+    assert V.data_ptr() % 16 != 0 and V.is_contiguous()
+    assert torch.equal(kernels.gauss_tile(V, V, 68.0, True),
+                       kernels.gauss_tile(V.clone(), V.clone(), 68.0,
+                                          False).fill_diagonal_(1.0))
+
+
+@pytest.mark.parametrize("p", [5, 8])
+def test_gauss_tile_operands_that_share_a_pointer(cuda, p):
+    """A leading block of X against X itself, both ways: one pointer, two
+    row counts. No mirror (M != N), and the padded copy (P = 5) must hold
+    the longer operand's rows."""
+    rng = np.random.default_rng(p)
+    X = torch.as_tensor(rng.normal(size=(300, p)), dtype=torch.float32,
+                        device=cuda)
+    head = X[:10]
+    assert head.data_ptr() == X.data_ptr()
+    for A, B in ((head, X), (X, head)):
+        K = kernels.gauss_tile(A, B, float(p), False)
+        ref = kernels.gauss_tile_plain(A, B, float(p), False)
+        assert K.shape == ref.shape
+        assert torch.max(torch.abs(K - ref)).item() <= 1e-5
+    assert torch.equal(kernels.gauss_tile(head, X, float(p), False),
+                       kernels.gauss_tile(X, X, float(p), False)[:10])
+
+
 def test_gauss_tile_64bit_offsets(cuda):
     """N = 46400: N² > 2³¹, so the last rows' outputs sit past any 32-bit
-    offset; they must match the plain version computed for those rows."""
+    offset; they must match the plain version computed for those rows.
+    The last 64 columns are written by the mirrored store (the tiles below
+    the diagonal are not computed): they must hold the same rows
+    transposed."""
     n, p = 46400, 3
     gen = torch.Generator(device=cuda)
     gen.manual_seed(0)
@@ -62,6 +160,8 @@ def test_gauss_tile_64bit_offsets(cuda):
     torch.cuda.synchronize()
     assert torch.max(torch.abs(K[-64:] - tail)).item() <= 1e-5
     assert torch.all(torch.diagonal(K[-64:, -64:]) == 1.0)
+    assert torch.max(torch.abs(K[:-64, -64:] - tail[:, :-64].T)).item() <= 1e-5
+    assert torch.equal(K[:, -64:], K[-64:].T)
     del K
 
 

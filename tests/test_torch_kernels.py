@@ -156,3 +156,128 @@ def test_t_tail_matches_jax():
         assert np.allclose(tstats.two_sided_p(t, df),
                            np.asarray(jstats.two_sided_p(jnp.asarray(t), df)),
                            rtol=1e-10, atol=0)
+
+
+# ---- K1's host side: the tile plan, the block -> tile map, the staging ----
+
+SMS = 132   # an H100's SM count; the plan is a pure function of it
+MAX_SHARED = 232448   # bytes of shared memory one block may use on it
+
+# (M, N, P, same rows): chip_smoke.py's K1 shapes, one entry, the 64-bit
+# offset test's N, and predict's 10 rows against 50,000
+PLAN_SHAPES = [(3106, 3106, 67, True), (1000, 1000, 5, True),
+               (4097, 4097, 3, True), (16384, 16384, 20, True),
+               (517, 3106, 67, False), (1, 1, 1, True),
+               (46400, 46400, 3, True), (10, 50000, 20, False)]
+
+
+@pytest.mark.parametrize("m,n,p,same", PLAN_SHAPES)
+def test_tile_plan_is_legal_and_covers_every_tile_once(m, n, p, same):
+    """The planned tile exists, its grid and shared memory are inside
+    CUDA's limits, and the blocks' tiles (each mirrored one counted at
+    (I, J) and (J, I)) cover the output's tiles exactly once."""
+    tile, kc = tk._launch_plan(m, n, p, same, SMS, None)
+    assert tile in tk._TILES and tile == tk._tile_plan(m, n, p, same, SMS)
+    assert kc % 4 == 0 and 4 <= kc <= 72
+    assert tk._shared_bytes(tile, p) <= MAX_SHARED
+    blocks = tk._blocks(m, n, tile, same)
+    assert 1 <= blocks <= tk._MAX_BLOCKS
+    rows, cols = -(-m // tile), -(-n // tile)
+    seen = np.zeros((rows, cols), dtype=np.int32)
+    for t in range(blocks):
+        if same:
+            j, i = tk._tri_decode(t)
+            assert 0 <= i <= j < rows
+            seen[i, j] += 1
+            if i != j:
+                seen[j, i] += 1
+        else:
+            seen[t // cols, t % cols] += 1
+    assert np.all(seen == 1)
+
+
+def test_tile_plan_follows_the_waves():
+    """64 where 128 would leave most of the last wave empty or cover rows
+    that do not exist; 128 once there are many waves either way."""
+    assert tk._tile_plan(3106, 3106, 67, True, SMS) == 64
+    assert tk._tile_plan(10, 50000, 20, False, SMS) == 64
+    assert tk._tile_plan(1000, 1000, 5, True, SMS) == 64
+    assert tk._tile_plan(16384, 16384, 20, True, SMS) == 128
+    assert tk._tile_plan(32768, 32768, 67, True, SMS) == 128
+
+
+def test_launch_plan_refuses_what_the_kernel_lacks():
+    with pytest.raises(ValueError, match="tile"):
+        tk._launch_plan(100, 100, 3, False, SMS, 32)
+    big = 64 * 70000                    # 4.9e9 tiles of 64 > 2^31 - 1
+    with pytest.raises(ValueError, match="grid"):
+        tk._launch_plan(big, big, 3, False, SMS, 64)
+    # mirrored, the same rows need half as many blocks, and 128 a quarter
+    assert tk._launch_plan(big, big, 3, True, SMS, 128)[0] == 128
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 500), (500, 1000), (1000, 1500),
+                                   (1500, 2000)])
+def test_tri_decode_exhaustive(lo, hi):
+    """The block -> (row, column) map of the mirrored grid, for every
+    block of every grid of up to 2,000 tile rows: block t = r(r+1)/2 + c
+    decodes to (r, c), row by row."""
+    t = tk._tri_count(lo)
+    for r in range(lo, hi):
+        for c in range(r + 1):
+            assert tk._tri_decode(t) == (r, c)
+            t += 1
+    assert t == tk._tri_count(hi)
+
+
+@pytest.mark.parametrize("rows", [725, 65535])
+def test_tri_decode_at_large_grids(rows):
+    """725 tile rows is N = 46400 at 64; 65,535 is the largest count whose
+    triangle still fits CUDA's grid. The ends of the last rows, where a
+    rounded square root would be off by one."""
+    assert tk._tri_count(rows) <= tk._MAX_BLOCKS
+    for r in (rows - 2, rows - 1):
+        first = tk._tri_count(r)
+        assert tk._tri_decode(first) == (r, 0)
+        assert tk._tri_decode(first + r) == (r, r)
+        assert tk._tri_decode(first - 1) == (r - 1, r - 1)
+    assert tk._tri_decode(tk._tri_count(rows) - 1) == (rows - 1, rows - 1)
+
+
+@pytest.mark.parametrize("p", [1, 3, 4, 5, 20, 67, 68, 72, 73, 200, 513])
+def test_slices_and_shared_memory(p):
+    """P up to 72 is staged whole (one slice, rounded up to a multiple of
+    4: 67 runs 68 steps, not 80); wider P in slices of 32 through two
+    buffers. Either way a block's shared memory fits, for both tiles."""
+    kc = tk._slice_width(p)
+    p4 = -(-p // 4) * 4
+    assert kc == (p4 if p4 <= 72 else 32)
+    for tile in tk._TILES:
+        assert tile * (tile + 1) * 4 <= tk._shared_bytes(tile, p)
+        assert tk._shared_bytes(tile, p) <= 80 * 1024
+
+
+@pytest.mark.parametrize("p,ptrs,pitch", [
+    (68, (1024, 2048), 0),       # a multiple of 4, aligned: X as it is
+    (20, (512, 512), 0),
+    (67, (1024, 1024), 68),      # the fit's width: one copy, pitch 68
+    (5, (1024, 4096), 8),
+    (1, (256, 256), 4),
+    (68, (1024, 2052), 68),      # a misaligned view: copied at its own pitch
+])
+def test_padded_pitch(p, ptrs, pitch):
+    """The kernel copies 16 bytes at a time: X is copied (once, into a
+    pitch that is the next multiple of 4, zeros in the pad) only where P
+    is no multiple of 4 or a pointer is not 16-byte aligned."""
+    got = tk._padded_pitch(p, *ptrs)
+    assert got == pitch and got % 4 == 0 and (got == 0 or 0 <= got - p < 4)
+
+
+def test_gauss_tile_cuda_wrapper_refuses_cpu_tensors():
+    """The kernel's own wrapper never runs the plain version: a CPU tensor
+    raises there (``gauss_tile`` routes CPU tensors before it)."""
+    A = torch.zeros((4, 3), dtype=torch.float32)
+    before = tk.gauss_tile_launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        tk._gauss_tile_cuda(A, A, 3.0, True)
+    assert tk.gauss_tile_launches == before

@@ -2,16 +2,26 @@
 
 The port of ``bigkrls_tpu`` (JAX) to PyTorch, with the dense Gaussian
 kernel and the kernel-free product K(X)·V as hand-written CUDA kernels
-for Hopper (``csrc/``). It runs the single-device fit, dense and
-streaming (kernel-free, chosen by itself from N = 32768 with ``neig <
-N``): ``fit``/``bigKRLS`` on one explicit device (``device="cuda"`` by
-default), ``predict``, ``summary`` and ``check_data``.
-``convert.model_from_reference`` turns a fitted JAX model into this
-package's model. The rest of the JAX package's API is listed in
-ROADMAP.md, queue 1, in the order it is ported.
+for Hopper (``csrc/``). Every entry point runs on one explicit device
+(``device="cuda"`` by default). Public API (reference equivalents in
+parentheses):
 
-``enable_x64()`` makes float64 the default fit dtype (parity mode, as the
-reference computes in double).
+* ``fit`` / ``bigKRLS``            (``bigKRLS()``), dense or streaming
+  (kernel-free, chosen by itself from N = 32768 with ``neig < N``), with
+  ``checkpoint_dir``, ``model_subfolder_name`` and ``trace_dir``
+* ``predict``                      (``predict.bigKRLS``)
+* ``summary``                      (``summary.bigKRLS``)
+* ``crossvalidate``                (``crossvalidate.bigKRLS``)
+* ``summary_cv``                   (``summary.bigKRLS_CV``)
+* ``save_model`` / ``load_model``  (``save.bigKRLS`` / ``load.bigKRLS``)
+* ``plot_effects`` / ``export_effects`` / ``effects_explorer``
+                                   (``shiny.bigKRLS``)
+* ``reducibility``                 (``examples/reducibility.R``)
+* ``enable_x64``                   float64 as the default fit dtype
+* ``python -m bigkrls_tpu_torch``  the command line
+
+``convert.model_from_reference`` turns a fitted JAX model into this
+package's model. Multi-device fits (``mesh=``) wait for ROADMAP item 18.
 """
 from __future__ import annotations
 
@@ -31,3 +41,18 @@ def enable_x64() -> None:
     """Make float64 the package's default fit dtype. PyTorch's own
     default dtype is left alone."""
     _model.DEFAULT_DTYPE = _torch.float64
+
+
+# persistence imports crossvalidate, and the `crossvalidate` and
+# `reducibility` functions shadow their submodules in the package
+# namespace, as in the JAX package
+from .crossvalidate import KRLSCrossValidation, summary_cv
+from .crossvalidate import crossvalidate as _crossvalidate_fn
+from .explorer import effects_explorer
+from .persistence import load_model, save_model
+from .plotting import export_effects, plot_effects
+from .reducibility import reducibility as _reducibility_fn
+
+crossvalidate = _crossvalidate_fn
+reducibility = _reducibility_fn
+from .cli import main

@@ -23,12 +23,17 @@ _PASSTHROUGH = ("xlabs", "lastkeeper", "which_derivatives", "path",
                 "timings", "eig_path")
 
 
-def model_from_numpy(fields: dict, device="cpu",
-                     dtype=torch.float64) -> KRLSModel:
+def model_from_numpy(fields: dict, device="cuda",
+                     dtype=None) -> KRLSModel:
     """Build a ``KRLSModel`` from a dict of its fields as numpy arrays and
     python scalars. The factored covariance is given as ``vcov_Q``,
     ``vcov_spectrum`` and ``vcov_scale`` (or omitted); ``K`` is optional.
-    Tensors are placed on ``device`` in ``dtype``."""
+    Tensors are placed on ``device`` in ``dtype``; as for ``fit``, the
+    device defaults to ``"cuda"`` and ``dtype=None`` means the package's
+    default fit dtype (``model.DEFAULT_DTYPE``)."""
+    if dtype is None:
+        from . import model
+        dtype = model.DEFAULT_DTYPE
     out = {}
     for f in dataclasses.fields(KRLSModel):
         name = f.name
@@ -61,7 +66,7 @@ def model_from_numpy(fields: dict, device="cpu",
     return KRLSModel(vcov_c_factored=vcov, **out)
 
 
-def model_from_reference(m, device="cpu", dtype=torch.float64,
+def model_from_reference(m, device="cuda", dtype=None,
                          keep_kernel: bool = False) -> KRLSModel:
     """The port's model for a fitted ``bigkrls_tpu`` model ``m``. The N×N
     kernel is copied only with ``keep_kernel`` (predict does not need

@@ -14,9 +14,10 @@ adaptive, fused and stepwise on a stored kernel, and the streaming
 (kernel-free) route, which never builds K: every product K·V is recomputed
 tile by tile from X (``ops/matvec.py``) and the eigensystem comes from
 ``ops/eig.eigensystem_streaming``. It is chosen by itself from
-``n >= streaming_threshold`` (32768) with ``neig < n``. A mesh and a
-checkpoint directory raise ``NotImplementedError`` naming the ROADMAP item
-that ports them; neither silently runs a single-device fit instead.
+``n >= streaming_threshold`` (32768) with ``neig < n``.
+``checkpoint_dir`` stores the eigendecomposition and resumes from it
+(``checkpoint.py``). A mesh raises ``NotImplementedError`` naming the
+ROADMAP item that ports it; it never silently runs a single-device fit.
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from . import checkpoint as ckpt
 from .lambda_search import lambda_search, lambda_search_solve
-from .ops.adaptive import postkernel_adaptive
+from .ops.adaptive import postkernel_adaptive, resume_adaptive
 from .ops import matvec
 from .ops.effects import derivatives_all, derivatives_streaming
 from .ops.eig import _NAN_EIG_MSG, eigensystem, eigensystem_streaming
@@ -39,7 +41,7 @@ from .ops.stats import neffective_acf, neffective_spectral, standardize
 from .routing import select_route
 from .types import Eigensystem, FactoredCovariance, KRLSModel
 from .utils.precision import ieee_fp32
-from .utils.progress import PhaseTimer
+from .utils.progress import PhaseTimer, trace
 
 # the fit's dtype when none is passed; ``enable_x64()`` sets float64
 DEFAULT_DTYPE = torch.float32
@@ -123,10 +125,6 @@ def _fit_impl(
         raise NotImplementedError(
             "fit(mesh=...): multi-device fits are not ported yet (ROADMAP "
             "queue 1, item 18)")
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "fit(checkpoint_dir=...): checkpointing is not ported yet "
-            "(ROADMAP queue 1, item 15)")
 
     if xlabs is None and hasattr(X, "columns"):
         xlabs = [str(c) for c in X.columns]
@@ -228,11 +226,47 @@ def _fit_impl(
     fused_out = None
     route_kwargs = dict(
         n=n, neig=neig, eigtrunc=eigtrunc, eig_method=eig_method,
-        streaming=streaming, explicit_lambda=lambda_ is not None,
+        streaming=streaming, mesh_present=False,
+        checkpoint_present=checkpoint_dir is not None,
+        explicit_lambda=lambda_ is not None,
         explicit_L=L is not None, explicit_U=U is not None)
     route = select_route(**route_kwargs)
-    adaptive_attempted = route.route == "adaptive"
-    if adaptive_attempted:
+    adaptive_attempted = False
+    if checkpoint_dir is not None:
+        ckpt_fp = ckpt.fingerprint(X_std, sigma, neig, eigtrunc, dtype)
+        if route.route == "adaptive":
+            # the head pairs, completed bounds and tail quadrature, plus
+            # the solution under a (y, tol) fingerprint: an identical refit
+            # resumes bit-exact, a changed y/tol re-runs golden + solve
+            sol_fp = ckpt.solution_fingerprint(y_std, tol)
+            loaded = ckpt.load_adaptive(checkpoint_dir, ckpt_fp, dtype,
+                                        sol_fp, device=device)
+            if loaded is not None:
+                adaptive_out, sol = loaded
+                eig = adaptive_out.eig
+                eig_path = "checkpoint"
+                if noisy:
+                    log(f"Steps 2-4: adaptive truncation (resumed from "
+                        f"checkpoint{' incl. solution' if sol else ''}) "
+                        f"(t+{time.time() - t0:.1f}s)")
+                if sol is not None:
+                    fused_out = sol
+                else:
+                    fused_out = resume_adaptive(adaptive_out, y_std, tol)
+                    # store the new solution; the vectors stay as written
+                    ckpt.update_adaptive_solution(
+                        checkpoint_dir, ckpt_fp, sol_fp, lam=fused_out[0],
+                        Le=fused_out[1], coeffs=fused_out[2])
+        if eig is None:
+            eig = ckpt.load_eig(checkpoint_dir, ckpt_fp, dtype,
+                                device=device)
+            if eig is not None:
+                eig_path = "checkpoint"
+                if noisy:
+                    log(f"Step 2/5: Spectral decomposition (resumed from "
+                        f"checkpoint) (t+{time.time() - t0:.1f}s)")
+    if eig is None and route.route == "adaptive":
+        adaptive_attempted = True
         if noisy:
             log(f"Steps 2-4: adaptive truncation (block-Krylov eig + "
                 f"lambda search + solve) (t+{time.time() - t0:.1f}s)")
@@ -243,6 +277,11 @@ def _fit_impl(
             eig = adaptive_out.eig
             eig_path = f"adaptive-krylov:k={adaptive_out.k}"
             fused_out = (lam_a, Le_a, coeffs_a)
+            if checkpoint_dir is not None:
+                ckpt.save_adaptive(
+                    checkpoint_dir, ckpt_fp, adaptive_out,
+                    sol_fp=ckpt.solution_fingerprint(y_std, tol),
+                    lam=lam_a, Le=Le_a, coeffs=coeffs_a)
             if noisy:
                 log(f"Lambda: {lam_a:.6g} (t+{time.time() - t0:.1f}s)")
         else:
@@ -286,6 +325,8 @@ def _fit_impl(
             eig = eigensystem(K, neig=neig, eigtrunc=eigtrunc,
                               method=eig_method)
             eig_path = f"stepwise:{eig_method}"
+        if checkpoint_dir is not None:
+            ckpt.save_eig(checkpoint_dir, ckpt_fp, eig)
     timer.mark("eigendecomposition")
 
     # ---- step 3: λ search ----
@@ -441,12 +482,17 @@ def _fit_impl(
         log(f"Done (t+{time.time() - t0:.1f}s)")
     if instructions:
         log("All done. You may wish to use bigkrls_tpu_torch.summary() for "
-            "detail and bigkrls_tpu_torch.predict() for out-of-sample "
-            "forecasts.")
+            "detail, bigkrls_tpu_torch.predict() for out-of-sample "
+            "forecasts, bigkrls_tpu_torch.plot_effects() or "
+            "effects_explorer() to visualize results, "
+            "bigkrls_tpu_torch.crossvalidate() for CV, and "
+            "bigkrls_tpu_torch.save_model()/load_model() for persistence.")
     return model
 
 
-def fit(y, X, **kwargs) -> KRLSModel:
+def fit(y, X, *, model_subfolder_name: Optional[str] = None,
+        overwrite_existing: bool = False, trace_dir: Optional[str] = None,
+        **kwargs) -> KRLSModel:
     """Fit a KRLS model on one device; see ``_fit_impl`` for the
     arguments. Defaults follow the reference's ``bigKRLS()``: sigma = P,
     eigtrunc 0.001 above N = 3000, tol = N/1000, λ by golden search.
@@ -455,9 +501,26 @@ def fit(y, X, **kwargs) -> KRLSModel:
     Krylov depth (8 at f64, 6 at f32) and ``fast_eig_power`` forces or
     forbids TF32 on the eigensolver's power products (default: only in
     the flows whose Rayleigh–Ritz recomputes K·B). Every other matrix
-    product runs in IEEE fp32 (no TF32)."""
-    with ieee_fp32():
-        return _fit_impl(y, X, **kwargs)
+    product runs in IEEE fp32 (no TF32).
+
+    ``checkpoint_dir`` stores the eigendecomposition there and resumes
+    from it on a later fit with the same standardized X and eig
+    configuration (``checkpoint.py``).
+
+    ``model_subfolder_name`` saves the fitted model to that folder and
+    sets ``model.path`` (the reference's save-during-fit option, with an
+    integer suffix on collision unless ``overwrite_existing``).
+
+    ``trace_dir`` runs the fit under ``torch.profiler`` (host activity,
+    and the card's kernels on a CUDA device) and writes a TensorBoard /
+    Chrome trace there."""
+    with ieee_fp32(), trace(trace_dir, kwargs.get("device", "cuda")):
+        model = _fit_impl(y, X, **kwargs)
+    if model_subfolder_name is not None:
+        from .persistence import save_model
+        model.path = save_model(model, model_subfolder_name,
+                                overwrite_existing=overwrite_existing)
+    return model
 
 
 # R-flavored alias matching the reference entry point name

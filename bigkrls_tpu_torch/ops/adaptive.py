@@ -13,8 +13,10 @@ caller runs the dense path).
 lastkeeper, the working-precision quadrature and bound bisections. The
 host then checks capture and the bounds in f64 numpy, exactly as the JAX
 ``postkernel_adaptive`` does, and re-solves once with the exact bounds if
-they differ. ``_krylov_moments`` and ``adaptive_eigensystem`` wait
-(ROADMAP queue 1, item 6).
+they differ. ``adaptive_eigensystem`` is the stand-alone eigensolver of
+the same protocol (head pairs, f64 bounds and tail quadrature, no solve);
+like the other iterative solvers it takes an optional start block, since
+torch cannot reproduce the JAX package's ``PRNGKey`` draw.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 from ..types import Eigensystem
-from .eig import _NAN_EIG_MSG, _subspace_iteration, lastkeeper_from_values
+from .eig import (_NAN_EIG_MSG, _krylov_geometry, _subspace_iteration,
+                  lastkeeper_from_values)
 from .fused import _bisect
 from .solve import golden_solve
 
@@ -195,6 +198,26 @@ class AdaptiveEig:
 # device (working-precision) side — the JAX program's arithmetic
 # ---------------------------------------------------------------------------
 
+def _deflated_moments(K, vals, vecs):
+    """m₁..m₅ = tr(Rʲ) of the deflated residual R = K − Q̂Λ̂Q̂ᵀ: two N×N
+    products (R², R³ = R²·R) and Frobenius inner products."""
+    R = K - (vecs * vals[None, :]) @ vecs.T
+    R = 0.5 * (R + R.T)
+    R2 = R @ R
+    R3 = R2 @ R
+    return torch.stack([torch.trace(R), torch.sum(R * R), torch.trace(R3),
+                        torch.sum(R2 * R2), torch.sum(R2 * R3)])
+
+
+def _krylov_moments(K, k: int, iters: int, extra: Optional[int] = None,
+                    start=None, seed: int = 0):
+    """Top-k block-Krylov eigenpairs of K (vectors negated, as in the
+    reference) plus the deflated-residual moments m₁..m₅. ``start`` is
+    the (n, q) start block of ``_subspace_iteration``."""
+    vals, vecs = _subspace_iteration(K, k, iters, extra, start=start,
+                                     seed=seed)
+    return vals, -vecs, _deflated_moments(K, vals, vecs)
+
 def _hankel(ms, npts: int, offset: int):
     idx = torch.arange(npts, device=ms.device)
     return ms[idx[:, None] + idx[None, :] + offset]
@@ -221,8 +244,12 @@ def _quad_device(m, npts: int):
     Cs = torch.where(chol_ok, C, eye)
     Ci = torch.linalg.solve_triangular(Cs, eye, upper=False)
     J = Ci @ H1 @ Ci.T
-    theta_s, V = torch.linalg.eigh(0.5 * (J + J.T))
-    valid = (chol_ok & (theta_s[0] >= -1e-10)
+    # scaled moments past the dtype's range (a tail of near-zero moments in
+    # f32) make J non-finite; torch's eigh raises on that where JAX's
+    # returns NaN, so such a candidate is marked invalid before the eigh
+    J_ok = torch.isfinite(J).all()
+    theta_s, V = torch.linalg.eigh(torch.where(J_ok, 0.5 * (J + J.T), eye))
+    valid = (chol_ok & J_ok & (theta_s[0] >= -1e-10)
              & torch.isfinite(theta_s).all())
     theta = torch.clamp_min(theta_s, 0.0) * s
     w = m[0] * V[0, :] ** 2
@@ -291,15 +318,7 @@ def _adaptive_fused(K, y_std, k: int, iters: int, eigtrunc: float,
     can hold them against the f64 host bounds."""
     n = K.shape[0]
     dt = y_std.dtype
-    vals, vecs = _subspace_iteration(K, k, iters, extra)
-    R = K - (vecs * vals[None, :]) @ vecs.T
-    R = 0.5 * (R + R.T)
-    R2 = R @ R
-    R3 = R2 @ R
-    moments = torch.stack([torch.trace(R), torch.sum(R * R), torch.trace(R3),
-                           torch.sum(R2 * R2), torch.sum(R2 * R3)])
-    del R, R2, R3
-    vecs = -vecs
+    vals, vecs, moments = _krylov_moments(K, k, iters, extra)
 
     keep = vals >= eigtrunc * vals[0]
     idx = torch.arange(k, device=K.device)
@@ -406,3 +425,74 @@ def resume_adaptive(out: AdaptiveEig, y_std, tol: float):
     lam, Le, coeffs, _ = golden_solve(out.eig.vectors, out.eig.values,
                                       y_std, out.L, out.U, tol)
     return lam, float(Le), coeffs
+
+
+def adaptive_eigensystem(
+    K,
+    eigtrunc: float,
+    iters: Optional[int] = None,
+    seed: int = 0,
+    max_fraction: float = 0.25,
+    margin: int = 8,
+    noisy: bool = False,
+    log: Callable[[str], None] = print,
+    start: Optional[Callable[[int], torch.Tensor]] = None,
+) -> Optional[AdaptiveEig]:
+    """Only ~lastkeeper eigenpairs of K, with verified truncation: the
+    block-Krylov head and the deflated tail moments at k₀ ≈ N/16; capture
+    checked past ``min(eigtrunc, 1e-3)·λ₁`` with ``margin`` pairs to
+    spare; k grown from the decay's extrapolation (at most twice), or
+    ``None`` (the caller runs the dense path) when it would pass
+    ``max_fraction·N``; then the 3-point tail quadrature and the
+    completed-spectrum λ bounds in f64. ``iters=None``: 5 in f64, 4 in
+    f32.
+
+    ``start(q)`` gives the (n, q) start block of each attempt (q grows with
+    k); by default a seeded torch draw (``eig.start_block``)."""
+    n = int(K.shape[0])
+    if iters is None:
+        iters = 5 if K.dtype == torch.float64 else 4
+    kcap = (int(n * max_fraction) // 64) * 64
+    if kcap < 64:
+        if noisy:
+            log("  adaptive eig: N too small to truncate profitably; "
+                "using exact dense eigh")
+        return None
+    k = min(_round64(max(64, n / 16.0)), kcap)
+
+    for _attempt in range(3):
+        block = None
+        if start is not None:
+            block = start(_krylov_geometry(n, k, iters)[0])
+        vals, vecs, moments = _krylov_moments(K, k, iters, start=block,
+                                              seed=seed)
+        vals_np = vals.detach().cpu().double().numpy()
+        if np.any(np.isnan(vals_np)):
+            raise ValueError(_NAN_EIG_MSG)
+        plan, aux = _capture_plan(vals_np, eigtrunc, k, kcap, n=n,
+                                  margin=margin, noisy=noisy, log=log)
+        if plan == "ok":
+            lastkeeper = aux
+            break
+        if plan == "fallback":
+            return None
+        k = aux
+    else:
+        if noisy:
+            log("  adaptive eig: truncation not captured after 3 attempts; "
+                "falling back to exact dense eigh")
+        return None
+
+    m_np = moments.detach().cpu().double().numpy()
+    tail_m = np.concatenate([[float(n - k)], np.maximum(m_np, 0.0)])
+    theta, w = _tail_atoms(tail_m)
+    L = _lower_bound_completed(vals_np, theta, w)
+    U = _upper_bound_completed(vals_np, theta, w, n)
+    if noisy:
+        log(f"  adaptive eig: computed {k} of {n} eigenpairs "
+            f"(lastkeeper={lastkeeper}); tail completed by "
+            f"{theta.size}-point moment quadrature for the lambda bounds")
+    eig = Eigensystem(values_full=vals, vectors=vecs[:, :lastkeeper],
+                      lastkeeper=lastkeeper)
+    return AdaptiveEig(eig=eig, L=float(L), U=float(U), k=k,
+                       tail_theta=theta, tail_w=w)

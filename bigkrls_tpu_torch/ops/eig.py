@@ -228,7 +228,10 @@ def eigensystem(K, neig: Optional[int] = None, eigtrunc: float = 0.0,
     if np.any(np.isnan(vals_np)):
         raise ValueError(_NAN_EIG_MSG)
     lastkeeper = lastkeeper_from_values(vals_np, eigtrunc)
-    return Eigensystem(values_full=vals, vectors=vecs[:, :lastkeeper],
+    # row-major, as a checkpoint's vectors load (``eigh`` returns them
+    # column-major), so that a resumed fit runs the same products bit for bit
+    return Eigensystem(values_full=vals,
+                       vectors=vecs[:, :lastkeeper].contiguous(),
                        lastkeeper=lastkeeper)
 
 

@@ -1,5 +1,5 @@
-"""Per-phase wall-clock timing (``PhaseTimer.mark``), ported from
-``bigkrls_tpu/utils/progress.py``.
+"""Per-phase wall-clock timing (``PhaseTimer.mark``) and the fit's
+profiler trace (``trace``), ported from ``bigkrls_tpu/utils/progress.py``.
 
 PyTorch returns from a CUDA call before the card has run it, so a host
 clock read without a synchronize books queued work to whichever phase
@@ -8,6 +8,7 @@ the fit's CUDA device before reading the clock.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional
 
@@ -32,3 +33,23 @@ class PhaseTimer:
         self.phases.append({"phase": name,
                             "seconds": round(now - self._last, 4)})
         self._last = now
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str], device=None):
+    """Run the region under ``torch.profiler`` and write a TensorBoard /
+    Chrome trace (``*.pt.trace.json``) into ``logdir``: host activity,
+    plus the device's kernels when ``device`` is a CUDA device. The
+    counterpart of the JAX package's ``xla_trace``; no-op without
+    ``logdir``."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield

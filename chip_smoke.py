@@ -37,16 +37,27 @@
 7. holds a streaming fit against the dense subspace fit at N=8192, and the
    constant-memory Chebyshev eigensolver (fast K2 and its epilogue)
    against its plain run and against a dense ``eigvalsh``;
-8. prints one JSON line for the kernels, then the result line.
+8. runs the workflows on the card: the census replication protocol
+   ``crossvalidate(ptesting=20, neig=50)`` for three seeds (stepwise
+   route) and 5-fold CV (fused route) at N=3106, P=67, each held against
+   the port's CPU float64 run; ``save_model``/``load_model`` of the dense
+   and the streaming model and of a CV object, with predictions after the
+   round trip bit-equal; checkpoint and resume of the dense adaptive fit
+   and of the N=50,000 streaming fit (the native store, one K2 launch on
+   the resume, λ* and coefficients bit-equal); the command line as
+   subprocesses; a ``trace_dir`` trace that names K1;
+9. prints one JSON line for the kernels, then the result line.
 
 Any failed check exits non-zero without the result line. No JAX is used.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -509,7 +520,8 @@ def streaming_phase(bt, failures):
 
     t0 = time.perf_counter()
     m_warm = bt.fit(y, X, noisy=False, **kw)
-    print(f"warm streaming fit: {time.perf_counter() - t0:.3f} s, timings "
+    warm_s = time.perf_counter() - t0
+    print(f"warm streaming fit: {warm_s:.3f} s, timings "
           f"{json.dumps(m_warm.timings)}")
     print(f"peak device memory so far: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -532,7 +544,7 @@ def streaming_phase(bt, failures):
     compare(m, m64, pred, pred64, y, failures)
     del m_plain, m64, m_warm
     torch.cuda.empty_cache()
-    return k2_fit
+    return k2_fit, m, warm_s
 
 
 def streaming_vs_dense(bt, failures):
@@ -617,6 +629,407 @@ def chebyshev_phase(failures):
 
 def rel(a, b):
     return abs(a - b) / max(abs(b), 1e-300)
+
+
+# ---------------------------------------------------------------------------
+# the workflows: cross-validation, persistence, checkpoints, the CLI, traces
+# ---------------------------------------------------------------------------
+
+# CV metrics, card f32 vs CPU f64. Derived from the end-to-end limits
+# above: the predictions agree within d = TOL_PRED_FRAC·sd(y), so an MSE
+# moves by at most 2·rms(residual)·d + d², under 1e-2 of itself while the
+# residuals' rms stays above about sd(y)/5; a squared correlation moves by
+# at most about 2·d/sd(y) = 2e-3 (5e-3 with room); the AME-only predictor
+# X·AME moves with the AMEs (within TOL_AME_FRAC of max|AME|), 2e-2 on its
+# metrics. The card showed those three loose: every metric of the census
+# split and of fold 1 within 2e-6 of the CPU's (H100 80GB HBM3, 700 W;
+# PERF.md), so they are held at 1e-4 / 1e-5, fifty times that. λ* keeps the
+# golden search's own limit: its stopping rule, not the arithmetic, bounds
+# how far two runs may land apart.
+TOL_CV_LAMBDA_REL = TOL_LAMBDA_REL
+TOL_CV_MSE_REL = 1e-4
+TOL_CV_R2_ABS = 1e-5
+TOL_CV_AME_REL = 1e-4
+# the CLI's predictions vs the in-process fit of the same CSV, of sd(y)
+TOL_CLI_PRED_FRAC = 1e-6
+
+
+def check(failures, name, ok, detail=""):
+    print(f"  {name}: {detail} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"{name}: {detail}")
+
+
+def cv_metric_checks(tag, got, want, failures):
+    """One CV split's metrics, card vs CPU f64, each against its limit."""
+    for key in sorted(want):
+        g, w = float(got[key]), float(want[key])
+        if "AME" in key:
+            val, tol, what = rel(g, w), TOL_CV_AME_REL, "rel"
+        elif key.startswith("MSE"):
+            val, tol, what = rel(g, w), TOL_CV_MSE_REL, "rel"
+        else:
+            val, tol, what = abs(g - w), TOL_CV_R2_ABS, "abs"
+        check(failures, f"{tag} {key} {what}", val <= tol,
+              f"{val:.3e} (limit {tol:g}; card {g:.6g}, CPU {w:.6g})")
+
+
+def folder_mb(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 2**20
+
+
+def same_prediction(a, b):
+    return (np.array_equal(a.predicted, b.predicted)
+            and np.array_equal(a.se_pred, b.se_pred))
+
+
+def start_cli(argvs, cwd):
+    """Start ``python -m bigkrls_tpu_torch`` once per argv, side by side."""
+    return [subprocess.Popen([sys.executable, "-m", "bigkrls_tpu_torch", *a],
+                             cwd=cwd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for a in argvs]
+
+
+def finish_cli(procs):
+    """Wait for the processes (killing any still running after 300 s);
+    returns (exit code, last JSON line or None, output) per process."""
+    out = []
+    for proc in procs:
+        try:
+            text = proc.communicate(timeout=300)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text = proc.communicate()[0] + "\n(killed after 300 s)"
+        last = None
+        for line in text.strip().splitlines()[::-1]:
+            if line.startswith("{"):
+                last = json.loads(line)
+                break
+        out.append((proc.returncode, last, text))
+    return out
+
+
+def census_protocol(bt, y, X, failures):
+    """crossvalidate(ptesting=20, neig=50) at full width for seeds 1-3 on
+    the card; seed 1 against the CPU f64 run. Returns seed 1's CV object
+    and K1's launches per call."""
+    kw = dict(ptesting=20, neig=50, noisy=False)
+    cvs, times, launches = [], [], []
+    for seed in (1, 2, 3):
+        counts = Counts()
+        t0 = time.perf_counter()
+        cv = bt.crossvalidate(y, X, seed=seed, device="cuda", **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append(counts.read()[0])
+        cvs.append(cv)
+    print(f"census protocol crossvalidate(ptesting=20, neig=50) N={N} P={P} "
+          f"on the card: seed 1 (cold) {times[0]:.3f} s, seeds 2-3 (warm) "
+          f"{times[1]:.3f}, {times[2]:.3f} s; route {cvs[0].trained.eig_path}"
+          f", train {len(cvs[0].indices['train_set'])} rows; K1 launches per "
+          f"call {launches}; lambda {[round(c.trained.lambda_, 6) for c in cvs]}"
+          f", MSE_oos {[round(c['MSE_oos'], 6) for c in cvs]}; seed 3's fit "
+          f"timings {json.dumps(cvs[2].trained.timings)}", flush=True)
+    t0 = time.perf_counter()
+    cpu = bt.crossvalidate(y, X, seed=1, device="cpu", dtype=torch.float64,
+                           **kw)
+    print(f"  the same protocol, seed 1, CPU f64: "
+          f"{time.perf_counter() - t0:.2f} s, route {cpu.trained.eig_path}")
+    check(failures, "census route", all(
+        c.trained.eig_path.startswith("stepwise") for c in cvs),
+        f"{[c.trained.eig_path for c in cvs]} (expected stepwise)")
+    check(failures, "census K1 launches per call", launches == [2, 2, 2],
+          f"{launches} (expected 2: fit and predict)")
+    check(failures, "census train/test indices vs CPU", all(
+        np.array_equal(cvs[0].indices[k], cpu.indices[k])
+        for k in ("train_set", "test_set")), "identical")
+    lam = rel(cvs[0].trained.lambda_, cpu.trained.lambda_)
+    check(failures, "census lambda rel", lam <= TOL_CV_LAMBDA_REL,
+          f"{lam:.3e} (limit {TOL_CV_LAMBDA_REL:g})")
+    cv_metric_checks("census", cvs[0].metrics, cpu.metrics, failures)
+    return cvs[0], launches[0], times
+
+
+def kfold_protocol(bt, y, X, failures):
+    """5-fold CV at full width on the card (fused route on ~2485 rows);
+    fold 1 against the CPU f64 run."""
+    counts = Counts()
+    t0 = time.perf_counter()
+    cv = bt.crossvalidate(y, X, seed=1, kfolds=5, noisy=False,
+                          device="cuda")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    k1 = counts.read()[0]
+    fits = [sum(ph["seconds"] for ph in f.trained.timings)
+            for f in cv.fold_results]
+    print(f"5-fold CV N={N} P={P} on the card: {total:.3f} s; fits (phase "
+          f"sums) {', '.join(f'{t:.3f}' for t in fits)} s; routes "
+          f"{[f.trained.eig_path for f in cv.fold_results]}; train rows "
+          f"{[f.trained.n for f in cv.fold_results]}; K1 launches {k1}; fold "
+          f"5's timings {json.dumps(cv.fold_results[4].trained.timings)}",
+          flush=True)
+    # the partition is drawn on the host from the seed alone, as
+    # crossvalidate draws it (cut(sample(N), breaks=5)); fold 1 is then
+    # fitted and tested on the CPU in f64 (the other four folds would add
+    # ~14 s of CPU time and test nothing more)
+    from bigkrls_tpu_torch.crossvalidate import _split_metrics
+    rng = np.random.default_rng(1)
+    folds = np.argsort(rng.permutation(N)) * 5 // N
+    tr, te = folds != 0, folds == 0
+    t0 = time.perf_counter()
+    m_cpu = bt.fit(y[tr], X[tr], device="cpu", dtype=torch.float64,
+                   noisy=False)
+    p_cpu = bt.predict(m_cpu, X[te], ytest=y[te])
+    cpu = _split_metrics(m_cpu, p_cpu, X[te], y[te], True)
+    print(f"  fold 1 on the CPU, f64: {time.perf_counter() - t0:.2f} s, "
+          f"route {m_cpu.eig_path}")
+    check(failures, "k-fold routes", all(
+        f.trained.eig_path == "eigh-fused" for f in cv.fold_results),
+        "eigh-fused on every fold")
+    check(failures, "k-fold K1 launches", k1 == 10,
+          f"{k1} (expected 10: a fit and a predict per fold)")
+    check(failures, "k-fold assignment vs the host partition of seed 1",
+          np.array_equal(cv.folds, folds), "identical")
+    finite = all(np.all(np.isfinite(v)) for v in cv.metrics.values())
+    check(failures, "k-fold metrics finite", finite, "all folds")
+    lam = rel(cv.fold_results[0].trained.lambda_, m_cpu.lambda_)
+    check(failures, "k-fold fold 1 lambda rel", lam <= TOL_CV_LAMBDA_REL,
+          f"{lam:.3e} (limit {TOL_CV_LAMBDA_REL:g})")
+    cv_metric_checks("k-fold fold 1", {k: v[0] for k, v in cv.metrics.items()},
+                     cpu, failures)
+    text = str(bt.summary_cv(cv))
+    check(failures, "summary_cv formats", "Fold 5" in text, "5 folds")
+    return k1, total, fits
+
+
+def persistence_checks(bt, m_dense, m_stream, cv, y, X, work, failures):
+    """save/load of the dense f32 model, the streaming model and a CV
+    object; predictions after the round trip bit-equal."""
+    from bigkrls_tpu_torch.native import matstore
+    check(failures, "native store built", matstore.available(),
+          "g++ -O3 -shared -fPIC")
+    Xn = X[:517]
+    for name, model, newdata in (("dense", m_dense, Xn),
+                                 ("streaming", m_stream, None),
+                                 ("census CV", cv, Xn)):
+        if newdata is None:
+            newdata = streaming_data(SN)[1][:517]
+        t0 = time.perf_counter()
+        folder = bt.save_model(model, os.path.join(work, name))
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = bt.load_model(folder, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        a = model.trained if name == "census CV" else model
+        b = loaded.trained if name == "census CV" else loaded
+        same = same_prediction(bt.predict(a, newdata, se_pred=True),
+                               bt.predict(b, newdata, se_pred=True))
+        kernel = "no K" if b.K is None else f"K {tuple(b.K.shape)} {b.K.dtype}"
+        check(failures, f"save/load {name}: predict(517 rows, SEs) after "
+              "the round trip", same,
+              f"bit-equal; {folder_mb(folder):.1f} MB, save {t_save:.3f} s, "
+              f"load {t_load:.3f} s, {kernel} on {b.coeffs.shape[0]} rows")
+
+
+def checkpoint_dense(bt, y, X, warm_s, work, failures):
+    """The dense adaptive fit saved to and resumed from a checkpoint."""
+    ck = os.path.join(work, "ck_dense")
+    kw = dict(device="cuda", noisy=False, checkpoint_dir=ck)
+    t0 = time.perf_counter()
+    m1 = bt.fit(y, X, **kw)
+    t_first = time.perf_counter() - t0
+    counts = Counts()
+    t0 = time.perf_counter()
+    m2 = bt.fit(y, X, **kw)
+    t_resume = time.perf_counter() - t0
+    k1_resume = counts.read()[0]
+    print(f"checkpointed dense fit: first {t_first:.3f} s ({m1.eig_path}), "
+          f"resumed {t_resume:.3f} s ({m2.eig_path}, K1 launches "
+          f"{k1_resume}, timings {json.dumps(m2.timings)}); plain warm fit "
+          f"{warm_s:.3f} s", flush=True)
+    check(failures, "dense resume K1 launches", k1_resume == 1,
+          f"{k1_resume} (expected 1: K is rebuilt, the eig region skipped)")
+    check(failures, "dense checkpoint: first fit adaptive",
+          m1.eig_path.startswith("adaptive-krylov"), m1.eig_path)
+    check(failures, "dense resume: eig_path and bits",
+          m2.eig_path == "checkpoint" and m1.lambda_ == m2.lambda_
+          and np.array_equal(m1.coeffs, m2.coeffs) and m1.looe == m2.looe
+          and m1.neffective == m2.neffective,
+          f"{m2.eig_path}; lambda, coeffs, looe, Neff bit-equal")
+    vec = Path(ck, "adaptive_vectors.bin")
+
+    def stamp():
+        return (vec.stat().st_mtime_ns, vec.stat().st_size) \
+            if vec.exists() else None
+
+    before = stamp()
+    y2 = y + np.cos(X[:, 1])
+    m3 = bt.fit(y2, X, **kw)
+    m3f = bt.fit(y2, X, device="cuda", noisy=False)
+    check(failures, "dense resume, changed y: stored prefix, vectors "
+          "untouched", m3.eig_path == "checkpoint" and before is not None
+          and stamp() == before, f"{m3.eig_path}; {vec.name} {before}")
+    print("  changed-y resume vs a fresh fit on that y (card f32):")
+    compare(m3, m3f, bt.predict(m3, X[:10], se_pred=True),
+            bt.predict(m3f, X[:10], se_pred=True), y2, failures)
+    return k1_resume
+
+
+def checkpoint_streaming(bt, warm_s, work, failures):
+    """The N=50,000 streaming fit saved to and resumed from a checkpoint:
+    the resume skips eigensystem_streaming, so K2 runs once (derivatives
+    and ŷ)."""
+    y, X = streaming_data(SN)
+    ck = os.path.join(work, "ck_stream")
+    kw = dict(neig=SNEIG, which_derivatives=[0, 1, 2, 3, 4], device="cuda",
+              noisy=False, checkpoint_dir=ck)
+    counts = Counts()
+    t0 = time.perf_counter()
+    m1 = bt.fit(y, X, **kw)
+    t_first = time.perf_counter() - t0
+    k2_first = counts.read()[1]
+    with open(os.path.join(ck, "eig_meta.json")) as fh:
+        native = json.load(fh).get("native")
+    counts = Counts()
+    t0 = time.perf_counter()
+    m2 = bt.fit(y, X, **kw)
+    t_resume = time.perf_counter() - t0
+    k2_resume = counts.read()[1]
+    print(f"checkpointed streaming fit N={SN}: first {t_first:.3f} s "
+          f"({m1.eig_path}, K2 launches {k2_first}, timings "
+          f"{json.dumps(m1.timings)}), resumed {t_resume:.3f} s "
+          f"({m2.eig_path}, K2 launches {k2_resume}, timings "
+          f"{json.dumps(m2.timings)}); warm streaming fit without a "
+          f"checkpoint {warm_s:.3f} s", flush=True)
+    check(failures, "streaming checkpoint: eigenvectors in the native store",
+          bool(native) and os.path.exists(os.path.join(ck,
+                                                        "eig_vectors.bin")),
+          "eig_vectors.bin")
+    check(failures, "streaming first fit K2 launches", k2_first == 8,
+          f"{k2_first} (expected 8)")
+    check(failures, "streaming resume K2 launches", k2_resume == 1,
+          f"{k2_resume} (expected 1, m=22: derivatives and yhat)")
+    check(failures, "streaming resume: eig_path and bits",
+          m2.eig_path == "checkpoint" and m1.lambda_ == m2.lambda_
+          and np.array_equal(m1.coeffs, m2.coeffs),
+          f"{m2.eig_path}; lambda, coeffs bit-equal")
+    return t_first, t_resume, k2_first, k2_resume
+
+
+class CLIRun:
+    """``python -m bigkrls_tpu_torch`` on the card, as subprocesses, in two
+    waves run beside the rest of the phase: fit, cv and warmup; then
+    summary, predict, reducibility and explore on the fitted model."""
+
+    NAMES = ["fit", "cv", "warmup", "summary", "predict", "reducibility",
+             "explore"]
+
+    def __init__(self, y, X, work):
+        self.root = str(Path(__file__).resolve().parent)
+        self.work, self.y, self.X = work, y, X
+        self.data = os.path.join(work, "smoke.csv")
+        np.savetxt(self.data, np.column_stack([y, X]), delimiter=",",
+                   fmt="%.17g",
+                   header=",".join(["y"] + [f"x{j}" for j in range(P)]),
+                   comments="")
+        self.new = os.path.join(work, "new.csv")
+        np.savetxt(self.new, X[:517], delimiter=",", fmt="%.17g")
+        self.mdir = os.path.join(work, "cli_model")
+        self.pred_csv = os.path.join(work, "cli_pred.csv")
+        self.dev = ["--device", "cuda"]
+        self.t0 = time.perf_counter()
+        self.first = start_cli(
+            [["fit", self.data, "--out", self.mdir, *self.dev],
+             ["cv", self.data, "--ptesting", "20", "--seed", "1", *self.dev],
+             ["warmup", "--shapes", f"{N}x{P}", *self.dev]], self.root)
+        self.second = None
+
+    def second_wave(self):
+        self.first = finish_cli(self.first)
+        self.second = start_cli(
+            [["summary", self.mdir, *self.dev],
+             ["predict", self.mdir, self.new, "--se", "--out",
+              self.pred_csv, *self.dev],
+             ["reducibility", self.mdir, *self.dev],
+             ["explore", self.mdir, "-o",
+              os.path.join(self.work, "fx.html"), *self.dev]], self.root)
+
+    def kill(self):
+        for procs in (self.first, self.second):
+            for proc in procs or ():
+                if isinstance(proc, subprocess.Popen):
+                    proc.kill()
+                    proc.communicate()
+
+
+def cli_checks(bt, cli, failures):
+    """The command line's exit codes, devices and predictions."""
+    from bigkrls_tpu_torch.utils.io import design_from_csv
+    y, X, first = cli.y, cli.X, cli.first
+    second = finish_cli(cli.second)
+    pred_csv = cli.pred_csv
+    print(f"command line (7 subprocesses, 3 then 4 side by side, beside the "
+          f"checks above): {time.perf_counter() - cli.t0:.2f} s", flush=True)
+    for name, (rc, last, text) in zip(cli.NAMES, first + second):
+        device = (last or {}).get("device", "")
+        ok = rc == 0 and device.startswith("cuda")
+        check(failures, f"CLI {name}", ok, f"exit {rc}, device {device!r}")
+        if not ok:
+            print(text[-2000:])
+    warm = first[2][1] or {}
+    check(failures, "CLI warmup first_s >= steady_s",
+          warm.get("first_s", 0) >= warm.get("steady_s", 1),
+          f"{warm.get('first_s')} / {warm.get('steady_s')} s")
+    yc, Xc = design_from_csv(cli.data)
+    m = bt.fit(yc, Xc, device="cuda", noisy=False)
+    want = bt.predict(m, X[:517], se_pred=True).predicted
+    got = np.loadtxt(pred_csv, delimiter=",", skiprows=1)[:, 0] \
+        if os.path.exists(pred_csv) else np.full(517, np.nan)
+    d = float(np.max(np.abs(got - want)) / np.std(y, ddof=1))
+    check(failures, "CLI predict vs in-process fit of the CSV / sd(y)",
+          d <= TOL_CLI_PRED_FRAC, f"{d:.3e} (limit {TOL_CLI_PRED_FRAC:g})")
+
+
+def trace_check(bt, y, X, work, failures):
+    d = os.path.join(work, "trace")
+    bt.fit(y, X, device="cuda", noisy=False, trace_dir=d)
+    files = sorted(Path(d).glob("*.pt.trace.json"))
+    names_k1 = bool(files) and "gauss_tile_kernel" in files[0].read_text()
+    check(failures, "trace_dir: a trace that names K1", names_k1,
+          f"{[f.name for f in files]}")
+
+
+def workflows_phase(bt, m_dense, m_stream, warm_dense_s, warm_stream_s,
+                    failures):
+    """Cross-validation, persistence, checkpoints, the CLI and a trace, on
+    the card. Returns K1's and K2's launches per workflow."""
+    t_phase = time.perf_counter()
+    y, X = smoke_data()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        cli = CLIRun(y, X, work)
+        try:
+            cv, k1_census, _ = census_protocol(bt, y, X, failures)
+            k1_kfold, _, _ = kfold_protocol(bt, y, X, failures)
+            persistence_checks(bt, m_dense, m_stream, cv, y, X, work,
+                               failures)
+            cli.second_wave()
+            k1_resume = checkpoint_dense(bt, y, X, warm_dense_s, work,
+                                         failures)
+            _, _, k2_first, k2_resume = checkpoint_streaming(
+                bt, warm_stream_s, work, failures)
+            trace_check(bt, y, X, work, failures)
+            cli_checks(bt, cli, failures)
+        finally:
+            cli.kill()
+    print(f"workflows phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"k1": {"census_cv_call": k1_census, "kfold5_call": k1_kfold,
+                   "dense_resume": k1_resume},
+            "k2": {"streaming_checkpointed_fit": k2_first,
+                   "streaming_resume": k2_resume}}
 
 
 def compare(m_gpu, m_cpu, pred_gpu, pred_cpu, y, failures):
@@ -739,19 +1152,23 @@ def main() -> int:
 
     # ---- K2 and the streaming slice ----
     k2 = check_k2(failures)
-    k2_launches = streaming_phase(bt, failures)
+    k2_launches, m_stream, warm_stream = streaming_phase(bt, failures)
     streaming_vs_dense(bt, failures)
     chebyshev_phase(failures)
+    wf = workflows_phase(bt, m, m_stream, statistics.median(warm),
+                         warm_stream, failures)
 
     print(json.dumps({"kernels": [{
         "name": "gauss_tile", "route": "cuda",
         "source": "bigkrls_tpu_torch/csrc/gauss_kernel.cu",
         "replaces": "bigkrls_tpu/ops/kernels.py:87",
-        "launches": launches, "library_ms": None, **k1}, {
+        "launches": launches, "library_ms": None,
+        "workflow_launches": wf["k1"], **k1}, {
         "name": "kernel_matmul", "route": "cuda",
         "source": "bigkrls_tpu_torch/csrc/kernel_matmul.cu",
         "replaces": "bigkrls_tpu/ops/matvec.py:139",
-        "launches": k2_launches, "library_ms": None, **k2}]}))
+        "launches": k2_launches, "library_ms": None,
+        "workflow_launches": wf["k2"], **k2}]}))
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1

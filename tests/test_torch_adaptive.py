@@ -65,6 +65,21 @@ def test_device_quadrature_matches_host():
     assert np.allclose(np.sum(w_d.numpy()), 4.0, rtol=1e-9)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_device_quadrature_of_a_zero_tail_does_not_raise(dtype):
+    """Deflated moments of an f32 block-Krylov head on a very low-rank
+    kernel: m₁ comes out negative and clamps to 0, so the scaled Hankel
+    entries divide by zero. The quadrature must decline (no atoms) as the
+    host one and the JAX program do, not raise from ``eigh``."""
+    m = torch.tensor([-9.624153, 1715.0643, -20385.127, 1350325.5,
+                      -26575304.0], dtype=dtype)
+    theta, w = ta._tail_atoms_device(m, 896.0)
+    host = ta._tail_atoms(np.concatenate([[896.0],
+                                          np.maximum(m.double().numpy(), 0)]))
+    assert host[0].size == 0
+    assert torch.all(theta == 0) and torch.all(w == 0)
+
+
 def test_capture_plan_and_extrapolation_match_jax():
     vals = 2.0 * 0.9 ** np.arange(64)
     assert ta._extrapolate_khat(vals, 2.0 * 0.9 ** 100) == \

@@ -111,7 +111,7 @@ def test_model_from_reference_predicts_like_jax(mtcars_fits):
     """A JAX fit turned into the port's model predicts (and summarizes)
     exactly as the JAX package does."""
     _, mj, _, X = mtcars_fits
-    mc = convert.model_from_reference(mj)
+    mc = convert.model_from_reference(mj, device="cpu", dtype=torch.float64)
     assert mc.K is None and isinstance(mc.vcov_c_factored.Q, torch.Tensor)
     Xn = X[:7] + 0.25
     pt = bt.predict(mc, Xn, se_pred=True)
@@ -120,7 +120,8 @@ def test_model_from_reference_predicts_like_jax(mtcars_fits):
     assert np.allclose(pt.se_pred, pj.se_pred, rtol=1e-12)
     assert np.allclose(bt.summary(mc).ttests, bk.summary(mj).ttests,
                        rtol=1e-10)
-    mk = convert.model_from_reference(mj, keep_kernel=True)
+    mk = convert.model_from_reference(mj, keep_kernel=True, device="cpu",
+                                       dtype=torch.float64)
     assert mk.K.shape == (32, 32)
 
 
@@ -152,19 +153,23 @@ def test_noisy_fit_logs_and_matches_quiet(rng):
     assert "golden-section iterations" in joined and "L: " in joined
 
 
-def test_unported_options_raise(rng):
+def test_unported_options_raise(rng, tmp_path):
     X = rng.normal(size=(40, 2))
     y = X[:, 0] + 0.1 * rng.normal(size=40)
-    for kw, item in ((dict(mesh=object()), "item 18"),
-                     (dict(checkpoint_dir="ckpt"), "item 15"),
-                     (dict(mesh=object(), streaming=True, neig=10),
-                      "item 18")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(mesh=object()),
+               dict(mesh=object(), streaming=True, neig=10)):
+        with pytest.raises(NotImplementedError, match="item 18"):
             bt.fit(y, X, noisy=False, **kw, **CPU64)
     # the streaming route is ported: asked for, or chosen by size, it runs
     for kw in (dict(streaming=True, neig=10),
                dict(neig=10, streaming_threshold=40)):
         assert bt.fit(y, X, noisy=False, **kw, **CPU64).K is None
+    # and so is checkpointing (item 15): it runs and resumes
+    ck = str(tmp_path / "ckpt")
+    assert bt.fit(y, X, noisy=False, checkpoint_dir=ck,
+                  **CPU64).eig_path == "stepwise:auto"
+    assert bt.fit(y, X, noisy=False, checkpoint_dir=ck,
+                  **CPU64).eig_path == "checkpoint"
 
 
 def test_validation_errors(rng):

@@ -476,7 +476,7 @@ def test_converted_model_vcov_fitted_diag(streaming_fits):
     _, _, y, X = streaming_fits
     mj = bk.fit(y, X, noisy=False)
     assert mj.K is not None
-    mc = convert.model_from_reference(mj)
+    mc = convert.model_from_reference(mj, device="cpu", dtype=torch.float64)
     assert mc.K is None
     assert np.allclose(mc.vcov_fitted_diag().numpy(),
                        np.asarray(mj.vcov_fitted_diag()), rtol=1e-8)

@@ -2,8 +2,8 @@
 
 The port of ``bigkrls_tpu`` (JAX) to PyTorch, with the dense Gaussian
 kernel and the kernel-free product K(X)·V as hand-written CUDA kernels
-for Hopper (``csrc/``). Every entry point runs on one explicit device
-(``device="cuda"`` by default). Public API (reference equivalents in
+for Hopper (``csrc/``). Every entry point runs on an explicit device
+(``device="cuda"`` by default) or mesh. Public API (reference equivalents in
 parentheses):
 
 * ``fit`` / ``bigKRLS``            (``bigKRLS()``), dense or streaming
@@ -20,8 +20,11 @@ parentheses):
 * ``enable_x64``                   float64 as the default fit dtype
 * ``python -m bigkrls_tpu_torch``  the command line
 
+``fit(mesh=...)`` runs over a mesh of devices, or of virtual shards of
+one device (``parallel/``: ``sharded.make_mesh``, the ring product,
+block Jacobi, ``distributed`` process groups).
 ``convert.model_from_reference`` turns a fitted JAX model into this
-package's model. Multi-device fits (``mesh=``) wait for ROADMAP item 18.
+package's model.
 """
 from __future__ import annotations
 

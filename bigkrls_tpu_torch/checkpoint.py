@@ -17,8 +17,9 @@ checksum, so a torn write is detected and the checkpoint recomputed) when
 it is built, else ``.npy``. Crash safety: the meta file is unlinked first,
 the arrays written, and the meta written last by temp file and rename.
 
-One process writes; a multi-process mesh fit (ROADMAP item 18) will need
-the JAX package's gather and process guard back.
+A mesh fit's eigenvectors may be sharded (``parallel/sharded.py``): they
+are gathered first (across processes, a collective every process takes
+part in), and then only process 0 writes.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from .native import matstore
+from .parallel.sharded import ShardedTensor, _rank, host_gather
 from .types import Eigensystem
 
 # what a damaged or half-written checkpoint can raise on load; the answer
@@ -40,9 +42,17 @@ _CORRUPT = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
 
 
 def _host64(a) -> np.ndarray:
+    if isinstance(a, ShardedTensor):
+        a = host_gather(a)
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().double().numpy()
     return np.asarray(a, dtype=np.float64)
+
+
+def _writer() -> bool:
+    """True in the process that writes checkpoints: process 0, or the only
+    one."""
+    return _rank() == 0
 
 
 def _dtype_name(dtype) -> str:
@@ -108,8 +118,10 @@ def _write_meta(meta_p: str, meta: dict) -> None:
 
 
 def save_eig(ckpt_dir: str, fp: str, eig: Eigensystem) -> None:
-    vecs = _host64(eig.vectors)
+    vecs = _host64(eig.vectors)        # the gather comes before the guard
     values = _host64(eig.values_full)
+    if not _writer():
+        return
     os.makedirs(ckpt_dir, exist_ok=True)
     meta_p, vals_p, vecs_bin, vecs_npy = _paths(ckpt_dir)
     # invalidate first: a crash after the new arrays but before the new
@@ -153,8 +165,11 @@ def save_adaptive(ckpt_dir: str, fp: str, out, sol_fp: Optional[str] = None,
     completed-spectrum λ bounds and the tail quadrature (the only record
     of the uncomputed tail), and, with ``sol_fp``/``lam``/``Le``/
     ``coeffs``, the solution keyed by the (y, tol) fingerprint."""
-    vecs = _host64(out.eig.vectors)
+    vecs = _host64(out.eig.vectors)    # the gather comes before the guard
     values = _host64(out.eig.values_full)
+    coeffs = None if coeffs is None else _host64(coeffs)
+    if not _writer():
+        return
     os.makedirs(ckpt_dir, exist_ok=True)
     meta_p, vals_p, vecs_bin, vecs_npy = _adaptive_paths(ckpt_dir)
     if os.path.exists(meta_p):          # invalidate first, as in save_eig
@@ -164,7 +179,7 @@ def save_adaptive(ckpt_dir: str, fp: str, out, sol_fp: Optional[str] = None,
         tail_theta=np.asarray(out.tail_theta, dtype=np.float64),
         tail_w=np.asarray(out.tail_w, dtype=np.float64))
     if coeffs is not None:
-        arrays["coeffs"] = _host64(coeffs)
+        arrays["coeffs"] = coeffs
     np.savez(vals_p, **arrays)
     native = _write_vectors(vecs_bin, vecs_npy, vecs)
     meta = {"fingerprint": fp, "lastkeeper": out.eig.lastkeeper,
@@ -183,8 +198,9 @@ def update_adaptive_solution(ckpt_dir: str, fp: str, sol_fp: str,
     Crash-safe order: (1) the meta rewritten without the solution, (2) the
     small npz replaced atomically, (3) the meta with the new solution. A
     crash anywhere loses at most the stored solution, never the prefix."""
+    coeffs = _host64(coeffs)
     meta_p, vals_p, _, _ = _adaptive_paths(ckpt_dir)
-    if not os.path.exists(meta_p):
+    if not _writer() or not os.path.exists(meta_p):
         return
     try:
         with open(meta_p) as fh:
@@ -198,7 +214,7 @@ def update_adaptive_solution(ckpt_dir: str, fp: str, sol_fp: str,
     for key in ("sol_fp", "lam", "Le"):
         meta.pop(key, None)
     _write_meta(meta_p, meta)                       # (1)
-    arrays["coeffs"] = _host64(coeffs)
+    arrays["coeffs"] = coeffs
     tmp_npz = vals_p + ".tmp.npz"
     np.savez(tmp_npz, **arrays)
     os.replace(tmp_npz, vals_p)                     # (2)

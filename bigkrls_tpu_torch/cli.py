@@ -12,8 +12,11 @@
 Every subcommand takes ``--device`` (default ``cuda``) and ends its output
 with a JSON line that names the device its model ran on. CSVs are numeric
 with an optional single header row, parsed by the native reader when it
-is built. ``--mesh`` (multi-device, ROADMAP item 18) and ``bench`` (the
-port's benchmark, ROADMAP item 19) are not ported yet and are refused.
+is built. ``--mesh`` ('all', a device count such as '4', or a 2-D shape
+such as '2x4') fits over a mesh of the visible devices of ``--device``'s
+type; virtual shards (several shards of one device) are available through
+the API only (``parallel/sharded.make_mesh``). ``bench`` (the port's
+benchmark) is not ported and is refused.
 """
 from __future__ import annotations
 
@@ -52,8 +55,9 @@ def _add_fit_args(p):
                         "only in the flows whose Rayleigh-Ritz recomputes "
                         "K.B)")
     p.add_argument("--mesh", type=str, default=None, metavar="SHAPE",
-                   help="multi-device fit: not ported yet (ROADMAP item "
-                        "18); refused")
+                   help="multi-device fit over a mesh of the visible "
+                        "devices: 'all', a device count ('4') or a 2-D "
+                        "RxC shape ('2x4')")
     _add_device_arg(p)
 
 
@@ -63,11 +67,51 @@ def _add_device_arg(p):
                         "(default cuda; cpu runs the plain versions)")
 
 
+def _visible_devices(device: str):
+    """The devices ``--mesh`` builds on: every visible CUDA device for a
+    CUDA ``--device``, the one CPU for ``cpu``."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _parse_mesh(spec: str, device: str = "cuda"):
+    """The fit's device mesh from the CLI spec ('all', '4', '2x4'), over
+    the visible devices of ``device``'s type, with the JAX package's
+    messages."""
+    from .parallel.sharded import make_mesh
+    devices = _visible_devices(device)
+    spec = spec.strip().lower()
+    if spec == "all":
+        return make_mesh(devices=devices)
+    if "x" in spec:
+        parts = spec.split("x")
+        if len(parts) != 2 or not all(p.isdigit() and int(p) > 0
+                                      for p in parts):
+            raise SystemExit(
+                f"--mesh {spec!r}: expected 'all', a device count "
+                "('4'), or a 2-D RxC shape ('2x4')")
+        shape = (int(parts[0]), int(parts[1]))
+        if shape[0] * shape[1] > len(devices):
+            raise SystemExit(
+                f"--mesh {spec}: needs {shape[0] * shape[1]} devices, "
+                f"only {len(devices)} visible")
+        return make_mesh(shape=shape,
+                         devices=devices[:shape[0] * shape[1]])
+    if not spec.isdigit() or int(spec) < 1:
+        raise SystemExit(
+            f"--mesh {spec!r}: expected 'all', a device count ('4'), "
+            "or a 2-D RxC shape ('2x4')")
+    if int(spec) > len(devices):
+        raise SystemExit(
+            f"--mesh {spec}: only {len(devices)} devices visible")
+    return make_mesh(devices=devices[:int(spec)])
+
+
 def _fit_kwargs(args):
-    if getattr(args, "mesh", None):
-        raise NotImplementedError(
-            "--mesh: multi-device fits are not ported yet (ROADMAP queue 1, "
-            "item 18)")
     kw = dict(sigma=args.sigma, lambda_=args.lambda_, neig=args.neig,
               eigtrunc=args.eigtrunc, acf=args.acf,
               noisy=args.noisy or None, device=args.device)
@@ -88,6 +132,8 @@ def _fit_kwargs(args):
         kw["streaming"] = True
     if args.fast_eig_power != "auto":
         kw["fast_eig_power"] = args.fast_eig_power == "on"
+    if getattr(args, "mesh", None):
+        kw["mesh"] = _parse_mesh(args.mesh, args.device)
     return kw
 
 
@@ -157,8 +203,8 @@ def main(argv=None) -> int:
     pe.add_argument("--title", type=str, default=None)
     _add_device_arg(pe)
 
-    sub.add_parser("bench", help="the port's benchmark: not ported yet "
-                                 "(ROADMAP item 19)")
+    sub.add_parser("bench", help="the port's benchmark: not ported "
+                                 "(refused)")
 
     pw = sub.add_parser(
         "warmup",
@@ -184,8 +230,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.cmd == "bench":
-        print("bigkrls_tpu_torch bench: the port's benchmark is not ported "
-              "yet (ROADMAP queue 1, item 19)", file=sys.stderr)
+        print("bigkrls_tpu_torch bench: the port's benchmark is not ported",
+              file=sys.stderr)
         return 2
 
     import bigkrls_tpu_torch as bt

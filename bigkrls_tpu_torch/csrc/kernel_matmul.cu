@@ -70,6 +70,13 @@
 //   once by the thread that holds its accumulator, so out may alias init. It
 //   must not alias X or V, which other blocks are still reading.
 // * Row offsets into V, init and out are 64-bit: N * M passes 2^31.
+// * The cross entry computes (K(Xa, Xb) V + init) * out_scale for Xa (Na, P),
+//   Xb (Nb, P) and V (Nb, M): the rows of the output (and of each tile) come
+//   from Xa and the columns of K, the steps j and the rows of V from Xb, each
+//   with its own norms and its own bound. That is one step of a ring product
+//   (parallel/ring_kernel.py): a block of rows against a visiting block.
+//   The square entry is the cross entry with Xa = Xb, one norm pre-pass and
+//   Na = Nb, so it runs the same operations as before the cross entry existed.
 //
 // Bound on an H100. The work is 2 N^2 P fp32 operations for the tile and
 // 2 N^2 M (FAST) or 6 N^2 M (SPLIT) TF32 operations for the product; X, V, out
@@ -288,9 +295,10 @@ __device__ __forceinline__ void load_x_chunk(const float* __restrict__ X,
 
 template <int NT, int MODE>
 __global__ void __launch_bounds__(THREADS, Plan<NT>::BLOCKS)
-kernel_matmul_kernel(const float* __restrict__ X, const float* __restrict__ r,
+kernel_matmul_kernel(const float* __restrict__ Xa, const float* __restrict__ ra, int64_t Na,
+                     const float* __restrict__ Xb, const float* __restrict__ rb, int64_t Nb,
                      const float* __restrict__ V, int64_t ldv, const float* init, float* out,
-                     int64_t N, int P, int64_t M, float sigma, float out_scale) {
+                     int P, int64_t M, float sigma, float out_scale) {
   constexpr int WN = 8 * NT;            // columns of V per consumer warp
   constexpr int WP = ring_pitch(NT);    // and the row pitch of its slices
   constexpr int TPARTS = MODE == SPLIT ? 2 : 1;
@@ -305,7 +313,7 @@ kernel_matmul_kernel(const float* __restrict__ X, const float* __restrict__ r,
 
   const int64_t i0 = (int64_t)blockIdx.x * TILE;
   const int64_t m0 = (int64_t)blockIdx.y * (TILE * NT);
-  const int steps = (int)((N + TILE - 1) / TILE);
+  const int steps = (int)((Nb + TILE - 1) / TILE);
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -341,8 +349,8 @@ kernel_matmul_kernel(const float* __restrict__ X, const float* __restrict__ r,
 
     // chunk f = step * nch + c lives in buffer f % 2 and is copied while chunk
     // f - 1 is consumed
-    load_x_chunk(X, r, N, P, (int64_t)rank * TILE, 0, Xj, tid);
-    load_x_chunk(X, r, N, P, i0, 0, Xi, tid);
+    load_x_chunk(Xb, rb, Nb, P, (int64_t)rank * TILE, 0, Xj, tid);
+    load_x_chunk(Xa, ra, Na, P, i0, 0, Xi, tid);
     cp_async_commit();
     cp_async_wait<0>();
     asm volatile("bar.sync 1, %0;\n" ::"n"(PRODUCERS) : "memory");
@@ -372,8 +380,8 @@ kernel_matmul_kernel(const float* __restrict__ X, const float* __restrict__ r,
         if (!last) {
           const int cn = c + 1 == nch ? 0 : c + 1;
           const int64_t jn = c + 1 == nch ? j0 + STRIDE * TILE : j0;
-          load_x_chunk(X, r, N, P, jn, cn * PC, Xj + ((f + 1) & 1) * XBUF, tid);
-          if (multi) load_x_chunk(X, r, N, P, i0, cn * PC, Xi + ((f + 1) & 1) * XBUF, tid);
+          load_x_chunk(Xb, rb, Nb, P, jn, cn * PC, Xj + ((f + 1) & 1) * XBUF, tid);
+          if (multi) load_x_chunk(Xa, ra, Na, P, i0, cn * PC, Xi + ((f + 1) & 1) * XBUF, tid);
         }
         cp_async_commit();
         const float* xj = Xj + (f & 1) * XBUF;
@@ -408,10 +416,10 @@ kernel_matmul_kernel(const float* __restrict__ X, const float* __restrict__ r,
       // ---- the entries, then into the tile buffer once its readers are done ----
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const bool row_ok = i0 + ty + i < N;
+        const bool row_ok = i0 + ty + i < Na;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const bool ok = row_ok && (j0 + tx * 8 + j < N);
+          const bool ok = row_ok && (j0 + tx * 8 + j < Nb);
 #ifdef BIGKRLS_ABLATE_EXP
           g[i][j] = ok ? g[i][j] + ri[i] + rj[j] : 0.0f;
 #else
@@ -473,7 +481,7 @@ kernel_matmul_kernel(const float* __restrict__ X, const float* __restrict__ r,
         const int rr = e / (2 * NT);
         const int cc = (e % (2 * NT)) * 4;
         const int64_t row = (int64_t)q * KC + rr;
-        const bool ok = row < N && mw + cc < ldv;
+        const bool ok = row < Nb && mw + cc < ldv;
         cp_async16(&dst[rr * WP + cc], ok ? &V[row * ldv + mw + cc] : V, ok);
       }
     };
@@ -594,7 +602,7 @@ kernel_matmul_kernel(const float* __restrict__ X, const float* __restrict__ r,
 #pragma unroll
     for (int h = 0; h < 8; ++h) {
       const int64_t row = i0 + 16 * (h / 2) + gq + 8 * (h % 2);
-      if (row >= N) continue;
+      if (row >= Na) continue;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -612,10 +620,17 @@ kernel_matmul_kernel(const float* __restrict__ X, const float* __restrict__ r,
   }
 }
 
+// the operands of one product: Xa's rows against Xb's, each with its norms
+struct Operands {
+  const float *Xa, *ra;
+  int64_t Na;
+  const float *Xb, *rb;
+  int64_t Nb;
+};
+
 template <int NT, int MODE>
-int launch(const float* X, const float* r, const float* V, int64_t ldv, const float* init,
-           float* out, int64_t N, int P, int64_t M, float sigma, float out_scale,
-           cudaStream_t s) {
+int launch(const Operands& x, const float* V, int64_t ldv, const float* init, float* out, int P,
+           int64_t M, float sigma, float out_scale, cudaStream_t s) {
   const int bytes = smem_bytes(NT, MODE, P);
   static int allowed = 0;  // dynamic shared memory this instantiation was last allowed
   cudaError_t e = cudaSuccess;
@@ -629,7 +644,7 @@ int launch(const float* X, const float* r, const float* V, int64_t ldv, const fl
   constexpr unsigned PAIRED = NT == PAIR_NT ? 2 : 1;  // blocks per cluster, along y
   const unsigned col_blocks = (unsigned)((M + MT - 1) / MT);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((N + TILE - 1) / TILE), (col_blocks + PAIRED - 1) / PAIRED * PAIRED);
+  cfg.gridDim = dim3((unsigned)((x.Na + TILE - 1) / TILE), (col_blocks + PAIRED - 1) / PAIRED * PAIRED);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
@@ -640,20 +655,39 @@ int launch(const float* X, const float* r, const float* V, int64_t ldv, const fl
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel_matmul_kernel<NT, MODE>, X, r, V, ldv, init, out, N, P, M,
-                         sigma, out_scale);
+  e = cudaLaunchKernelEx(&cfg, kernel_matmul_kernel<NT, MODE>, x.Xa, x.ra, x.Na, x.Xb, x.rb, x.Nb,
+                         V, ldv, init, out, P, M, sigma, out_scale);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 template <int MODE>
-int launch_nt(int nt, const float* X, const float* r, const float* V, int64_t ldv,
-              const float* init, float* out, int64_t N, int P, int64_t M, float sigma,
-              float out_scale, cudaStream_t s) {
+int launch_nt(int nt, const Operands& x, const float* V, int64_t ldv, const float* init,
+              float* out, int P, int64_t M, float sigma, float out_scale, cudaStream_t s) {
   switch (nt) {
-    case 1: return launch<1, MODE>(X, r, V, ldv, init, out, N, P, M, sigma, out_scale, s);
-    case 4: return launch<4, MODE>(X, r, V, ldv, init, out, N, P, M, sigma, out_scale, s);
-    case PAIR_NT:
-      return launch<PAIR_NT, MODE>(X, r, V, ldv, init, out, N, P, M, sigma, out_scale, s);
+    case 1: return launch<1, MODE>(x, V, ldv, init, out, P, M, sigma, out_scale, s);
+    case 4: return launch<4, MODE>(x, V, ldv, init, out, P, M, sigma, out_scale, s);
+    case PAIR_NT: return launch<PAIR_NT, MODE>(x, V, ldv, init, out, P, M, sigma, out_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// one product: the norm pre-passes (one when Xa is Xb), then the kernel
+int product(const float* Xa, int64_t Na, const float* Xb, int64_t Nb, const float* V, int64_t ldv,
+            const float* init, float* r, float* out, int64_t P, int64_t M, float sigma,
+            float out_scale, int mode, int n_tiles, cudaStream_t s) {
+  if (P > INT32_MAX || Na > (int64_t)INT32_MAX * (TILE / 8) || Nb > (int64_t)INT32_MAX * (TILE / 8) ||
+      ldv < M || ldv % 4 != 0 || reinterpret_cast<uintptr_t>(V) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool same = Xa == Xb && Na == Nb;
+  bigkrls::launch_row_sqnorm(Xa, Na, P, r, s);
+  float* rb = same ? r : r + Na;
+  if (!same) bigkrls::launch_row_sqnorm(Xb, Nb, P, rb, s);
+  const Operands x{Xa, r, Na, Xb, rb, Nb};
+  const int p = (int)P;
+  switch (mode) {
+    case SPLIT: return launch_nt<SPLIT>(n_tiles, x, V, ldv, init, out, p, M, sigma, out_scale, s);
+    case FAST: return launch_nt<FAST>(n_tiles, x, V, ldv, init, out, p, M, sigma, out_scale, s);
+    case FMA: return launch_nt<FMA>(n_tiles, x, V, ldv, init, out, p, M, sigma, out_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -672,16 +706,16 @@ extern "C" int kernel_matmul_f32(const float* X, const float* V, int64_t ldv, co
                                  float* r, float* out, int64_t N, int64_t P, int64_t M,
                                  float sigma, float out_scale, int mode, int n_tiles,
                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P > INT32_MAX || N > (int64_t)INT32_MAX * (TILE / 8) || ldv < M || ldv % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(V) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  bigkrls::launch_row_sqnorm(X, N, P, r, s);
-  const int p = (int)P;
-  switch (mode) {
-    case SPLIT: return launch_nt<SPLIT>(n_tiles, X, r, V, ldv, init, out, N, p, M, sigma, out_scale, s);
-    case FAST: return launch_nt<FAST>(n_tiles, X, r, V, ldv, init, out, N, p, M, sigma, out_scale, s);
-    case FMA: return launch_nt<FMA>(n_tiles, X, r, V, ldv, init, out, N, p, M, sigma, out_scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return product(X, N, X, N, V, ldv, init, r, out, P, M, sigma, out_scale, mode, n_tiles,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The cross entry: Xa (Na, P) and Xb (Nb, P), V (Nb, M) with pitch ldv, init and
+// out (Na, M); r (Na + Nb) is scratch for both norms. Otherwise as above.
+extern "C" int kernel_matmul_cross_f32(const float* Xa, int64_t Na, const float* Xb, int64_t Nb,
+                                       const float* V, int64_t ldv, const float* init, float* r,
+                                       float* out, int64_t P, int64_t M, float sigma,
+                                       float out_scale, int mode, int n_tiles, void* stream) {
+  return product(Xa, Na, Xb, Nb, V, ldv, init, r, out, P, M, sigma, out_scale, mode, n_tiles,
+                 static_cast<cudaStream_t>(stream));
 }

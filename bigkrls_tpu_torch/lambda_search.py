@@ -94,11 +94,17 @@ def lambda_search_solve(eig: Eigensystem, y_std, L: Optional[float] = None,
 
 def lambda_search(eig: Eigensystem, y_std, L: Optional[float] = None,
                   U: Optional[float] = None, tol: Optional[float] = None,
-                  noisy: bool = False,
+                  noisy: bool = False, device_loop: bool = True,
                   log: Callable[[str], None] = print) -> float:
     """Golden-section search; returns λ*. Matches ``bLambdaSearch(L, U,
     y, Eigenobject, tol, noisy)``; ``noisy`` logs every bracket in the
-    reference's format."""
+    reference's format.
+
+    ``device_loop`` is accepted for the JAX package's signature and
+    changes nothing here: the JAX package chooses between a search loop
+    compiled into one device program and a host loop, and the port has
+    only the host loop (``ops/solve.golden_solve``), which evaluates each
+    bracket on the device and gives the same λ* either way."""
     L, U, tol = _resolve_bounds(eig, int(y_std.shape[0]), L, U, tol)
     lam = golden_solve(eig.vectors, eig.values, y_std, L, U, tol,
                        log=log if noisy else None)[0]

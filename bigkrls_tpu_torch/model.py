@@ -8,16 +8,15 @@ The reference's ``bigKRLS()`` pipeline (``R/bigKRLS.R:97-516``):
   4. coefficients, fitted values, factored vcov       (ops/solve.py)
   5. pointwise marginal effects + AME variances       (ops/effects.py)
 
-on one device, named by ``device=`` (default ``"cuda"``; nothing probes
-for a card). All four single-device routes run (``routing.select_route``):
-adaptive, fused and stepwise on a stored kernel, and the streaming
-(kernel-free) route, which never builds K: every product K·V is recomputed
-tile by tile from X (``ops/matvec.py``) and the eigensystem comes from
-``ops/eig.eigensystem_streaming``. It is chosen by itself from
-``n >= streaming_threshold`` (32768) with ``neig < n``.
-``checkpoint_dir`` stores the eigendecomposition and resumes from it
-(``checkpoint.py``). A mesh raises ``NotImplementedError`` naming the
-ROADMAP item that ports it; it never silently runs a single-device fit.
+on the device named by ``device=`` (default ``"cuda"``; nothing probes
+for a card), or over a mesh of shards (``mesh=``, ``parallel/``). All four
+routes run (``routing.select_route``): adaptive, fused and stepwise on a
+stored kernel, and the streaming (kernel-free) route, which never builds
+K: every product K·V is recomputed tile by tile from X (``ops/matvec.py``)
+and the eigensystem comes from ``ops/eig.eigensystem_streaming``. It is
+chosen by itself from ``n >= streaming_threshold`` (32768) with
+``neig < n``. ``checkpoint_dir`` stores the eigendecomposition and resumes
+from it (``checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -38,9 +37,11 @@ from .ops.fused import postkernel_device
 from .ops.kernels import kernel_matrix
 from .ops.solve import solve_for_c
 from .ops.stats import neffective_acf, neffective_spectral, standardize
+from .parallel.sharded import (Mesh, commit, dense, place, shard_fit_arrays,
+                               shard_info, sharded_gauss_kernel)
 from .routing import select_route
 from .types import Eigensystem, FactoredCovariance, KRLSModel
-from .utils.precision import ieee_fp32
+from .utils.precision import matmul_precision, reduced
 from .utils.progress import PhaseTimer, trace
 
 # the fit's dtype when none is passed; ``enable_x64()`` sets float64
@@ -115,16 +116,21 @@ def _fit_impl(
     fast_eig_power: Optional[bool] = None,
     ncores: Optional[int] = None,
     instructions: bool = False,
+    precision: str = "highest",
     log: Callable[[str], None] = print,
 ) -> KRLSModel:
     t0 = time.time()
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a bigkrls_tpu_torch Mesh "
+                            f"(parallel/sharded.make_mesh), got "
+                            f"{type(mesh).__name__}")
+        # the fit runs on the mesh's shards; what XLA runs replicated runs
+        # on its first shard
+        device = mesh.first_device
     device = torch.device(device)
     timer = PhaseTimer(device=device)
-
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=...): multi-device fits are not ported yet (ROADMAP "
-            "queue 1, item 18)")
+    fast = reduced(precision)
 
     if xlabs is None and hasattr(X, "columns"):
         xlabs = [str(c) for c in X.columns]
@@ -186,10 +192,9 @@ def _fit_impl(
             "full decomposition is not available).")
     if fast_eig_power is None:
         # reduced-precision power products exactly where the flow's
-        # Rayleigh-Ritz recomputes K.B anyway (eig._resolve_fast_power)
-        fast_eig_power = "auto"
-    # the kernel-free product, for every consumer outside the eigensolver
-    km = functools.partial(matvec.kernel_matmul, impl=kernel_impl)
+        # Rayleigh-Ritz recomputes K.B anyway (eig._resolve_fast_power);
+        # every one of them under a reduced ``precision``
+        fast_eig_power = True if fast else "auto"
 
     # binary (first-difference) columns: exactly two unique values
     x_is_binary = np.array(
@@ -206,6 +211,29 @@ def _fit_impl(
     y_init_mean = float(y_mean)
     x_init_sds = _to_numpy(x_sds)
 
+    # ---- mesh placement: on a dense route X is row-sharded over "i" and K
+    # block-sharded over ("i", "j"); on the streaming route the same shards
+    # form a ring over which X and V rotate, one K2 cross launch a step.
+    # The O(N·k) work after the eigensolver runs on the mesh's first shard
+    # on gathered operands; ``sharding_report`` records the layouts.
+    ring = X_sh = None
+    if mesh is not None:
+        if streaming:
+            from .parallel.ring_kernel import make_ring_matmul, ring_mesh_of
+            ring = ring_mesh_of(mesh)
+        # the N-row objects at rest: row-sharded, or gathered on a ring that
+        # N does not divide (the ring still splits every product)
+        at_rest = ring or mesh
+        rows = "row" if ring is None or n % ring.size == 0 else "replicated"
+        X_sh = (place(X_std, ring, rows) if ring is not None
+                else shard_fit_arrays(mesh, X_std, y_std)[0])
+    if ring is not None:
+        product = make_ring_matmul(ring, kernel_impl)
+    else:
+        product = functools.partial(matvec.kernel_matmul, impl=kernel_impl)
+    # the kernel-free product, for every consumer outside the eigensolver
+    km = functools.partial(product, fast_accum=True) if fast else product
+
     # ---- step 1: kernel ----
     if streaming:
         K = None
@@ -215,7 +243,10 @@ def _fit_impl(
     else:
         if noisy:
             log(f"Step 1/5: Kernel (t+{time.time() - t0:.1f}s)")
-        K = kernel_matrix(X_std, sigma, kernel_impl)
+        if mesh is not None:
+            K = sharded_gauss_kernel(mesh, kernel_impl)(X_sh, sigma)
+        else:
+            K = kernel_matrix(X_std, sigma, kernel_impl)
     timer.mark("kernel")
 
     # ---- steps 2-4 by route ----
@@ -226,7 +257,7 @@ def _fit_impl(
     fused_out = None
     route_kwargs = dict(
         n=n, neig=neig, eigtrunc=eigtrunc, eig_method=eig_method,
-        streaming=streaming, mesh_present=False,
+        streaming=streaming, mesh_present=mesh is not None,
         checkpoint_present=checkpoint_dir is not None,
         explicit_lambda=lambda_ is not None,
         explicit_L=L is not None, explicit_U=U is not None)
@@ -271,7 +302,7 @@ def _fit_impl(
             log(f"Steps 2-4: adaptive truncation (block-Krylov eig + "
                 f"lambda search + solve) (t+{time.time() - t0:.1f}s)")
         res = postkernel_adaptive(K, y_std, eigtrunc, tol, noisy=noisy,
-                                  log=log)
+                                  mesh=mesh, log=log)
         if res is not None:
             adaptive_out, lam_a, Le_a, coeffs_a, adaptive_spec = res
             eig = adaptive_out.eig
@@ -316,17 +347,26 @@ def _fit_impl(
                 progress = lambda d, t: log(
                     f"  subspace power iteration {d}/{t} "
                     f"(t+{time.time() - t0:.1f}s)")
-            eig = eigensystem_streaming(X_std, sigma, neig=neig,
-                                        eigtrunc=eigtrunc, iters=eig_iters,
-                                        fast_power=fast_eig_power,
-                                        progress=progress, impl=kernel_impl)
+            eig = eigensystem_streaming(
+                X_std, sigma, neig=neig, eigtrunc=eigtrunc, iters=eig_iters,
+                fast_power=fast_eig_power, progress=progress,
+                impl=kernel_impl, mesh=ring,
+                matmul=product if ring is not None else None)
             eig_path = "streaming-krylov"
         else:
             eig = eigensystem(K, neig=neig, eigtrunc=eigtrunc,
-                              method=eig_method)
+                              method=eig_method, mesh=mesh)
             eig_path = f"stepwise:{eig_method}"
         if checkpoint_dir is not None:
             ckpt.save_eig(checkpoint_dir, ckpt_fp, eig)
+    q_layout = None
+    if mesh is not None:
+        # the eigenbasis at rest is row-sharded over "i" (a resumed one is
+        # laid out so); the steps after this use it gathered
+        q_layout = commit(eig.vectors, at_rest, rows)
+        eig = Eigensystem(values_full=eig.values_full,
+                          vectors=dense(eig.vectors),
+                          lastkeeper=eig.lastkeeper)
     timer.mark("eigendecomposition")
 
     # ---- step 3: λ search ----
@@ -375,7 +415,7 @@ def _fit_impl(
         if streaming:
             yfitted_std = km(X_std, coeffs[:, None].contiguous(), sigma)[:, 0]
         else:
-            yfitted_std = K @ coeffs
+            yfitted_std = dense(K @ coeffs)
         sigmasq = residual_variance(yfitted_std)
         if vcov_est:
             if adaptive_spec is not None:
@@ -441,6 +481,22 @@ def _fit_impl(
         vcov_c_fac = FactoredCovariance(eig.vectors, spectrum,
                                         scale=y_init_sd ** 2)
 
+    sharding_report = None
+    if mesh is not None:
+        # each heavy object's layout at rest, in the JAX keys; "devices"
+        # counts distinct shards
+        sharding_report = {"Q": shard_info(q_layout),
+                           "yfitted": shard_info(commit(yfitted_std, at_rest,
+                                                        rows)),
+                           "X_std": shard_info(X_sh)}
+        if K is not None:
+            sharding_report["K"] = shard_info(K)
+        if derivative:
+            sharding_report["derivatives"] = shard_info(
+                commit(dres.derivatives, at_rest, rows))
+        # the model keeps one gathered kernel, as a single-device fit does
+        K = dense(K)
+
     yfitted = _to_numpy(yfitted_std) * y_init_sd + y_init_mean
     R2 = float(1.0 - np.var(y_np - yfitted, ddof=1) / y_init_sd ** 2)
 
@@ -472,6 +528,7 @@ def _fit_impl(
         x_means=_to_numpy(x_means),
         x_sds=x_init_sds,
         timings=timer.phases,
+        sharding_report=sharding_report,
         eig_path=eig_path,
         eig_tail_theta=(adaptive_out.tail_theta if adaptive_out is not None
                         else None),
@@ -490,18 +547,36 @@ def _fit_impl(
     return model
 
 
-def fit(y, X, *, model_subfolder_name: Optional[str] = None,
+def fit(y, X, *, precision: str = "highest",
+        model_subfolder_name: Optional[str] = None,
         overwrite_existing: bool = False, trace_dir: Optional[str] = None,
         **kwargs) -> KRLSModel:
-    """Fit a KRLS model on one device; see ``_fit_impl`` for the
-    arguments. Defaults follow the reference's ``bigKRLS()``: sigma = P,
+    """Fit a KRLS model; see ``_fit_impl`` for the arguments. Defaults
+    follow the reference's ``bigKRLS()``: sigma = P,
     eigtrunc 0.001 above N = 3000, tol = N/1000, λ by golden search.
     ``streaming=True`` (by itself from ``streaming_threshold`` rows with
     ``neig < n``) never builds the N×N kernel; ``eig_iters`` is its
     Krylov depth (8 at f64, 6 at f32) and ``fast_eig_power`` forces or
     forbids TF32 on the eigensolver's power products (default: only in
-    the flows whose Rayleigh–Ritz recomputes K·B). Every other matrix
-    product runs in IEEE fp32 (no TF32).
+    the flows whose Rayleigh–Ritz recomputes K·B).
+
+    ``precision`` (the JAX package's names, ``utils/precision``):
+    "highest" (the default) runs every matrix product in IEEE fp32, no
+    TF32, and K2 in its precise split-TF32 mode. The lower settings
+    ("high", "default", "fastest", ...) allow TF32 on cuBLAS products and
+    on K2's tile·V (its ``fast_accum`` mode, the eigensolver's power
+    products included); the rank-P distance part of both kernels stays
+    IEEE fp32. On the CPU and at float64 the setting changes nothing.
+
+    ``mesh`` (``parallel/sharded.make_mesh``; its shards may repeat one
+    device) runs the fit over a mesh: on a dense route X is row-sharded,
+    K block-sharded with one K1 launch per block, and every product with K
+    a block product; on the streaming route the shards form a ring and
+    each product is D² launches of K2's cross entry. ``device`` is then
+    the mesh's first shard. ``model.sharding_report`` records each heavy
+    object's layout (the JAX keys); the model itself holds the gathered
+    kernel and eigenbasis, so ``summary``, ``predict``, ``save_model``
+    and ``crossvalidate`` treat it as a single-device model.
 
     ``checkpoint_dir`` stores the eigendecomposition there and resumes
     from it on a later fit with the same standardized X and eig
@@ -514,8 +589,11 @@ def fit(y, X, *, model_subfolder_name: Optional[str] = None,
     ``trace_dir`` runs the fit under ``torch.profiler`` (host activity,
     and the card's kernels on a CUDA device) and writes a TensorBoard /
     Chrome trace there."""
-    with ieee_fp32(), trace(trace_dir, kwargs.get("device", "cuda")):
-        model = _fit_impl(y, X, **kwargs)
+    device = kwargs.get("device", "cuda")
+    if isinstance(kwargs.get("mesh"), Mesh):
+        device = kwargs["mesh"].first_device
+    with matmul_precision(precision), trace(trace_dir, device):
+        model = _fit_impl(y, X, precision=precision, **kwargs)
     if model_subfolder_name is not None:
         from .persistence import save_model
         model.path = save_model(model, model_subfolder_name,

@@ -119,4 +119,9 @@ def library() -> ctypes.CDLL:
                                       ctypes.c_float, ctypes.c_float,
                                       ctypes.c_int, ctypes.c_int, p]
     lib.kernel_matmul_f32.restype = ctypes.c_int
+    lib.kernel_matmul_cross_f32.argtypes = [p, i64, p, i64, p, i64, p, p, p,
+                                            i64, i64, ctypes.c_float,
+                                            ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_int, p]
+    lib.kernel_matmul_cross_f32.restype = ctypes.c_int
     return lib

@@ -27,6 +27,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.sharded import (ShardedTensor, block_product, commit,
+                                dense, inner, map_blocks, trace)
 from ..types import Eigensystem
 from .eig import (_NAN_EIG_MSG, _krylov_geometry, _subspace_iteration,
                   lastkeeper_from_values)
@@ -200,13 +202,37 @@ class AdaptiveEig:
 
 def _deflated_moments(K, vals, vecs):
     """m₁..m₅ = tr(Rʲ) of the deflated residual R = K − Q̂Λ̂Q̂ᵀ: two N×N
-    products (R², R³ = R²·R) and Frobenius inner products."""
+    products (R², R³ = R²·R) and Frobenius inner products. For a
+    block-sharded K, R is formed block by block and the products are
+    block products (:func:`_deflated_moments_sharded`)."""
+    if isinstance(K, ShardedTensor):
+        return _deflated_moments_sharded(K, vals, vecs)
     R = K - (vecs * vals[None, :]) @ vecs.T
     R = 0.5 * (R + R.T)
     R2 = R @ R
     R3 = R2 @ R
     return torch.stack([torch.trace(R), torch.sum(R * R), torch.trace(R3),
                         torch.sum(R2 * R2), torch.sum(R2 * R3)])
+
+
+def _deflated_moments_sharded(K, vals, vecs):
+    """:func:`_deflated_moments` on a block-sharded K: block (i, j) of R is
+    K_ij − (Q̂_i Λ̂) Q̂_jᵀ on that block's shard, symmetrized against the
+    transposed region, and R², R³ are block products."""
+    QL = vecs * vals[None, :]
+
+    def deflate(i, j, blk, rows, cols):
+        return blk - (QL[rows[0]:rows[1]].to(blk.device)
+                      @ vecs[cols[0]:cols[1]].to(blk.device).T)
+
+    R0 = map_blocks(K, deflate)
+    R = map_blocks(R0, lambda i, j, blk, rows, cols: 0.5 * (
+        blk + R0.region(cols[0], cols[1], rows[0], rows[1],
+                        device=blk.device).T))
+    R2 = block_product(R, R)
+    R3 = block_product(R2, R)
+    return torch.stack([trace(R), inner(R, R), trace(R3), inner(R2, R2),
+                        inner(R2, R3)])
 
 
 def _krylov_moments(K, k: int, iters: int, extra: Optional[int] = None,
@@ -339,7 +365,7 @@ def _adaptive_fused(K, y_std, k: int, iters: int, eigtrunc: float,
 
 def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
                         iters: Optional[int] = None, noisy: bool = False,
-                        log: Callable[[str], None] = print):
+                        mesh=None, log: Callable[[str], None] = print):
     """The adaptive post-kernel fit. Returns ``(AdaptiveEig, lam, Le,
     coeffs, spectrum)`` (``spectrum`` the vcov filter ``1/(λ+λ*)²``, σ̂²
     applied by the caller), or ``None`` when the dense path is the right
@@ -349,7 +375,12 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
     ``iters=3`` with +8 (the JAX package's values). The capture check
     grows k at most twice; the device bounds are accepted only if they
     match the f64 host bounds, else golden+solve re-runs once with the
-    exact ones."""
+    exact ones.
+
+    ``mesh``: K is block-sharded over it (``parallel/sharded.py``); the
+    Krylov products and the deflated moments are block products, the
+    small Ritz and quadrature steps run on the mesh's first shard, and the
+    eigenbasis comes back row-sharded over axis "i"."""
     n = int(K.shape[0])
     if K.dtype == torch.float64:
         iters = 5 if iters is None else iters
@@ -397,7 +428,10 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
             f"(lastkeeper={lastkeeper}); tail completed by "
             f"{theta.size}-point moment quadrature for the lambda bounds")
 
-    eig = Eigensystem(values_full=vals, vectors=vecs[:, :lastkeeper],
+    vectors = vecs[:, :lastkeeper]
+    if mesh is not None:
+        vectors = commit(vectors.contiguous(), mesh, "row")
+    eig = Eigensystem(values_full=vals, vectors=vectors,
                       lastkeeper=lastkeeper)
     out = AdaptiveEig(eig=eig, L=float(L), U=float(U), k=k,
                       tail_theta=theta, tail_w=w)
@@ -422,8 +456,9 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
 def resume_adaptive(out: AdaptiveEig, y_std, tol: float):
     """Golden search + spectral solve from a stored :class:`AdaptiveEig`;
     returns ``(lam, Le, coeffs)``."""
-    lam, Le, coeffs, _ = golden_solve(out.eig.vectors, out.eig.values,
-                                      y_std, out.L, out.U, tol)
+    lam, Le, coeffs, _ = golden_solve(dense(out.eig.vectors),
+                                      out.eig.values, y_std, out.L, out.U,
+                                      tol)
     return lam, float(Le), coeffs
 
 
@@ -437,6 +472,7 @@ def adaptive_eigensystem(
     noisy: bool = False,
     log: Callable[[str], None] = print,
     start: Optional[Callable[[int], torch.Tensor]] = None,
+    mesh=None,
 ) -> Optional[AdaptiveEig]:
     """Only ~lastkeeper eigenpairs of K, with verified truncation: the
     block-Krylov head and the deflated tail moments at k₀ ≈ N/16; capture
@@ -448,7 +484,9 @@ def adaptive_eigensystem(
     f32.
 
     ``start(q)`` gives the (n, q) start block of each attempt (q grows with
-    k); by default a seeded torch draw (``eig.start_block``)."""
+    k); by default a seeded torch draw (``eig.start_block``). ``mesh``: as
+    in :func:`postkernel_adaptive`; the head vectors come back row-sharded
+    over axis "i"."""
     n = int(K.shape[0])
     if iters is None:
         iters = 5 if K.dtype == torch.float64 else 4
@@ -492,7 +530,10 @@ def adaptive_eigensystem(
         log(f"  adaptive eig: computed {k} of {n} eigenpairs "
             f"(lastkeeper={lastkeeper}); tail completed by "
             f"{theta.size}-point moment quadrature for the lambda bounds")
-    eig = Eigensystem(values_full=vals, vectors=vecs[:, :lastkeeper],
+    vectors = vecs[:, :lastkeeper]
+    if mesh is not None:
+        vectors = commit(vectors.contiguous(), mesh, "row")
+    eig = Eigensystem(values_full=vals, vectors=vectors,
                       lastkeeper=lastkeeper)
     return AdaptiveEig(eig=eig, L=float(L), U=float(U), k=k,
                        tail_theta=theta, tail_w=w)

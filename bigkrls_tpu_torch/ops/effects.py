@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.sharded import matmul_dense
+
 
 class DerivativesResult(NamedTuple):
     derivatives: torch.Tensor    # (N, P_est) standardized units
@@ -79,14 +81,16 @@ def _from_products(Y, X_std, coeffs, Q, spectrum, sigma: float, binary_mask,
 
 def derivatives_all(X_std, K, coeffs, Q, spectrum, sigma: float, binary_mask,
                     z0, z1) -> DerivativesResult:
-    """Dense-kernel path: one K @ V multi-RHS product, then assembly.
+    """Dense-kernel path: one K @ V multi-RHS product, then assembly. K
+    may be block-sharded over a mesh: the product is then the block
+    product (``parallel/sharded.py``), gathered for the assembly.
 
     ``X_std`` (N, P_est) is already subset to the estimated columns;
     ``spectrum`` is the Var(c) spectral diagonal σ̂²/(λₖ+λ)²;
     ``binary_mask`` marks the first-difference columns and ``z0``/``z1``
     are their standardized min/max."""
     delta, B = _binary_geometry(X_std, binary_mask, z0, z1)
-    Y = K @ _rhs_stack(X_std, coeffs, B)
+    Y = matmul_dense(K, _rhs_stack(X_std, coeffs, B))
     return _from_products(Y, X_std, coeffs, Q, spectrum, float(sigma),
                           binary_mask, delta, B)
 

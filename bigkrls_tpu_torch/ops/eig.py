@@ -1,11 +1,15 @@
 """Symmetric eigendecomposition of the kernel, dense and kernel-free.
 
-Port of the single-device part of ``bigkrls_tpu/ops/eig.py``: the full
-``eigh``, randomized block-Krylov iteration, Lanczos, the lastkeeper rule
-and ``eigensystem`` for a stored kernel; and ``eigensystem_streaming``,
-which needs only products K·V (``ops/matvec.py``) and never builds K, in
-its three flows (progressive block-Krylov, stacked blocks + fat QR,
-constant-memory Chebyshev).
+Port of ``bigkrls_tpu/ops/eig.py``: the full ``eigh``, randomized
+block-Krylov iteration, Lanczos, block Jacobi (``parallel/jacobi.py``),
+the lastkeeper rule and ``eigensystem`` for a stored kernel, which may be
+block-sharded over a mesh (``parallel/sharded.py``: the solvers' products
+K·V are then block products, and what XLA runs replicated runs on the
+mesh's first shard); and ``eigensystem_streaming``, which needs only
+products K·V (``ops/matvec.py``, or the ring product of
+``parallel/ring_kernel.py``) and never builds K, in its three flows
+(progressive block-Krylov, stacked blocks + fat QR, constant-memory
+Chebyshev).
 
 Conventions copied from the reference: eigenvalues **descending**,
 eigenvectors **negated**, and ``lastkeeper`` applied to the vectors only.
@@ -24,11 +28,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.sharded import commit, dense, matmul_dense
 from ..types import Eigensystem
 from . import matvec
 
 # above this many rows an f32 block is orthonormalized by CholeskyQR²
 CHOLQR_MIN_ROWS = 16384
+
+_LOG = logging.getLogger("bigkrls_tpu_torch")
 
 _NAN_EIG_MSG = ("Missing eigenvalues prevent obtaining the regularization "
                 "parameter lambda. Check for repeated observations (or other "
@@ -131,19 +138,19 @@ def _subspace_iteration(K, k: int, iters: int, extra: Optional[int] = None,
         B[:, :q] = V
         KBs = []
         for g in range(iters):
-            W = K @ V                 # K @ V_g — reused as KB block g
+            W = matmul_dense(K, V)    # K @ V_g — reused as KB block g
             KBs.append(W)
             W = _dgks(B, W)
             V = _block_orth(W)
             B[:, (g + 1) * q:(g + 2) * q] = V
-        KBs.append(K @ V)
+        KBs.append(matmul_dense(K, V))
         return _ritz_topk(B, torch.cat(KBs, dim=1), k)
 
     blocks = [V]
     for _ in range(iters):
-        blocks.append(_block_orth(K @ blocks[-1]))
+        blocks.append(_block_orth(matmul_dense(K, blocks[-1])))
     Q = _householder_q(torch.cat(blocks, dim=1))
-    return _ritz_topk(Q, K @ Q, k)
+    return _ritz_topk(Q, matmul_dense(K, Q), k)
 
 
 def _lanczos(K, k: int, start=None, seed: int = 0):
@@ -161,7 +168,7 @@ def _lanczos(K, k: int, start=None, seed: int = 0):
     tiny = torch.finfo(K.dtype).tiny
     for i in range(m):
         v = V[i]
-        w = K @ v
+        w = matmul_dense(K, v)
         alpha = torch.dot(v, w)
         w = w - alpha * v
         w = w - V.T @ (V @ w)
@@ -187,24 +194,56 @@ def lastkeeper_from_values(values: np.ndarray, eigtrunc: float) -> int:
     return int(idx.max()) + 1
 
 
+def _replicated_eigh_fits(n: int, itemsize: int,
+                          budget: Optional[int] = None,
+                          fraction: float = 0.35, device=None) -> bool:
+    """The JAX package's memory crossover for a full decomposition under
+    a mesh: a gathered ``eigh`` needs ~3·N² elements (operator, workspace,
+    vectors) on one shard, block Jacobi keeps the O(N²) work split over
+    the shards at ~10× the FLOPs. Gather while that fits ``fraction`` of
+    the device's memory (``utils/memory.device_memory_budget``)."""
+    need = 3 * n * n * itemsize
+    if budget is None:
+        from ..utils.memory import device_memory_budget
+        budget = device_memory_budget(device)
+    return need <= fraction * budget
+
+
 def eigensystem(K, neig: Optional[int] = None, eigtrunc: float = 0.0,
                 method: str = "auto", full_threshold: int = 8192,
                 subspace_iters: int = 8, seed: int = 0,
-                start=None) -> Eigensystem:
+                start=None, mesh=None) -> Eigensystem:
     """The (possibly truncated) eigensystem of the kernel.
 
-    ``method``: "auto" | "full" | "subspace" | "lanczos". "auto" takes the
-    full ``eigh`` when ``neig`` is no real truncation, block-Krylov when
-    ``neig ≤ N/8``, ``eigh``-then-slice up to ``full_threshold`` and
-    block-Krylov beyond. ``start`` is passed to the iterative solvers."""
+    ``method``: "auto" | "full" | "subspace" | "lanczos" | "jacobi".
+    "auto" takes the full ``eigh`` when ``neig`` is no real truncation,
+    block-Krylov when ``neig ≤ N/8``, ``eigh``-then-slice up to
+    ``full_threshold`` and block-Krylov beyond. ``start`` is passed to the
+    iterative solvers.
+
+    ``mesh`` (K then usually block-sharded over it): "auto" takes
+    block-Krylov for any real truncation, its products K·V being block
+    products; for the full spectrum, a gathered ``eigh`` on the mesh's
+    first shard while :func:`_replicated_eigh_fits`, else block Jacobi
+    (``parallel/jacobi.py``). A Jacobi run that does not converge falls
+    back to a gathered ``eigh`` and logs a warning, as in the JAX package.
+    The eigenvectors come back row-sharded over the mesh's axis "i"."""
     n = K.shape[0]
     neig = n if neig is None else min(n, int(neig))
-    if method == "jacobi":
-        raise NotImplementedError(
-            "eig method 'jacobi' is the mesh solver (ROADMAP queue 1, "
-            "item 18)")
     if method == "auto":
-        if neig >= n:
+        if neig < n and mesh is not None:
+            method = "subspace"
+        elif mesh is not None:
+            if _replicated_eigh_fits(n, K.element_size(),
+                                     device=mesh.first_device):
+                method = "full"
+                _LOG.info("mesh full-spectrum eig: the operator fits one "
+                          "shard's memory; using a gathered eigh")
+            else:
+                method = "jacobi"
+                _LOG.info("mesh full-spectrum eig: N=%d too large to "
+                          "gather; using distributed block Jacobi", n)
+        elif neig >= n:
             method = "full"
         elif neig * 8 <= n or n > full_threshold:
             method = "subspace"
@@ -212,8 +251,18 @@ def eigensystem(K, neig: Optional[int] = None, eigtrunc: float = 0.0,
             method = "full"
 
     if method == "full":
-        vals, vecs = _eigh_desc(K)
+        vals, vecs = _eigh_desc(dense(K))
         vals, vecs = vals[:neig], vecs[:, :neig]
+    elif method == "jacobi":
+        from ..parallel.jacobi import block_jacobi_eigh
+        try:
+            vals, vecs = block_jacobi_eigh(K, mesh=mesh)
+        except RuntimeError as e:
+            _LOG.warning("block Jacobi fell back to gathered dense eigh: %s",
+                         e)
+            vals, vecs = torch.linalg.eigh(dense(K))
+        vals = vals.flip(0)[:neig]
+        vecs = -vecs.flip(1)[:, :neig]
     elif method == "subspace":
         vals, vecs = _subspace_iteration(K, neig, subspace_iters,
                                          start=start, seed=seed)
@@ -230,16 +279,15 @@ def eigensystem(K, neig: Optional[int] = None, eigtrunc: float = 0.0,
     lastkeeper = lastkeeper_from_values(vals_np, eigtrunc)
     # row-major, as a checkpoint's vectors load (``eigh`` returns them
     # column-major), so that a resumed fit runs the same products bit for bit
-    return Eigensystem(values_full=vals,
-                       vectors=vecs[:, :lastkeeper].contiguous(),
-                       lastkeeper=lastkeeper)
+    vecs = vecs[:, :lastkeeper].contiguous()
+    if mesh is not None:
+        vecs = commit(vecs, mesh, "row")
+    return Eigensystem(values_full=vals, vectors=vecs, lastkeeper=lastkeeper)
 
 
 # ---------------------------------------------------------------------------
 # kernel-free (streaming) solvers: only products K·V, never K
 # ---------------------------------------------------------------------------
-
-_LOG = logging.getLogger("bigkrls_tpu_torch")
 
 
 def _orth(W):
@@ -422,6 +470,7 @@ def eigensystem_streaming(
     krylov: Optional[bool] = None,
     start=None,
     impl: str = "auto",
+    mesh=None,
 ) -> Eigensystem:
     """Truncated eigensystem of the (never materialized) kernel of X_std.
 
@@ -431,13 +480,17 @@ def eigensystem_streaming(
     only). ``neig`` must be < N.
 
     ``matmul(X, V, sigma)`` is the full-precision product; by default the
-    package's own, with ``impl`` passed on to it. ``power_matmul`` serves
-    the power and Chebyshev products only; by default it is ``matmul``,
-    or, when ``fast_power`` resolves true (:func:`_resolve_fast_power`)
-    and X_std is an f32 CUDA tensor, the package's product with
-    ``fast_accum=True`` (TF32 on tile·V). The final Rayleigh–Ritz always
-    uses ``matmul``. With a caller-supplied callable, ``fast_power`` has
-    no effect and the Chebyshev flow takes the generic :func:`_cheb_step`.
+    package's own, with ``impl`` passed on to it. A callable with the
+    package product's signature (``fast_accum``, ``init``, ``out_scale``,
+    ``out``) marks itself with ``takes_fast_accum = True``, as the ring
+    product does, and is treated as the package's own. ``power_matmul``
+    serves the power and Chebyshev products only; by default it is
+    ``matmul``, or, when ``fast_power`` resolves true
+    (:func:`_resolve_fast_power`) and X_std is an f32 CUDA tensor,
+    ``matmul`` with ``fast_accum=True`` (TF32 on tile·V). The final
+    Rayleigh–Ritz always uses ``matmul``. With any other caller-supplied
+    callable, ``fast_power`` has no effect and the Chebyshev flow takes the
+    generic :func:`_cheb_step`.
 
     ``krylov=True`` keeps every power block (progressively orthonormal)
     and runs Rayleigh–Ritz on the whole block-Krylov basis, memory
@@ -450,7 +503,18 @@ def eigensystem_streaming(
     ``start`` is the (n, q) start block before orthonormalization, q from
     ``_krylov_geometry(n, neig, iters)``; by default :func:`start_block`
     with ``seed``. ``progress(done, total)`` is called after every
-    ``chunk`` products, after the device has finished them."""
+    ``chunk`` products, after the device has finished them.
+
+    ``mesh`` (a ring, passed together with its ring ``matmul``,
+    ``parallel/ring_kernel.make_ring_matmul``) row-shards the returned
+    eigenvectors over it when N divides evenly; otherwise they stay
+    gathered, with a warning (the ring still splits every product)."""
+    if mesh is not None and X_std.shape[0] % mesh.size:
+        _LOG.warning(
+            "eigensystem_streaming: N=%d not divisible by %d shards; the "
+            "Krylov basis and eigenvectors stay gathered at rest (the ring "
+            "matmul still row-shards every K@V product internally)",
+            X_std.shape[0], mesh.size)
     n = X_std.shape[0]
     neig = min(int(neig), n)
     dtype, device = X_std.dtype, X_std.device
@@ -459,7 +523,10 @@ def eigensystem_streaming(
     if krylov is None:
         krylov = _auto_krylov(n, q, iters, X_std.element_size(),
                               device=device)
-    own = matmul is None and power_matmul is None
+    # the package's product, or one with its signature (the ring product,
+    # ``parallel/ring_kernel.make_ring_matmul``): fast_accum, init, out
+    own = power_matmul is None and (
+        matmul is None or getattr(matmul, "takes_fast_accum", False))
     if matmul is None:
         matmul = functools.partial(matvec.kernel_matmul, impl=impl)
     if power_matmul is None:
@@ -469,8 +536,7 @@ def eigensystem_streaming(
                          "for a caller-supplied matmul")
         if own and (_resolve_fast_power(fast_power, krylov, progressive)
                     and device.type == "cuda" and dtype == torch.float32):
-            power_matmul = functools.partial(matvec.kernel_matmul, impl=impl,
-                                             fast_accum=True)
+            power_matmul = functools.partial(matmul, fast_accum=True)
             _LOG.info(
                 "eigensystem_streaming: reduced-precision (TF32) power "
                 "products enabled (a flow whose Rayleigh-Ritz recomputes "
@@ -547,5 +613,7 @@ def eigensystem_streaming(
     if np.any(np.isnan(vals_np)):
         raise ValueError(_NAN_EIG_MSG)
     lastkeeper = lastkeeper_from_values(vals_np, eigtrunc)
-    return Eigensystem(values_full=vals, vectors=vecs[:, :lastkeeper],
-                       lastkeeper=lastkeeper)
+    vecs = vecs[:, :lastkeeper]
+    if mesh is not None and n % mesh.size == 0:
+        vecs = commit(vecs.contiguous(), mesh, "row")
+    return Eigensystem(values_full=vals, vectors=vecs, lastkeeper=lastkeeper)

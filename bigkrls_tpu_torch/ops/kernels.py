@@ -27,18 +27,37 @@ import math
 
 import torch
 
+from ..utils.precision import rank_p_ieee
+
 # launches of the CUDA kernel made through ``gauss_tile`` (CPU calls, which
 # run the plain version, do not count)
 gauss_tile_launches = 0
 
 KERNEL_IMPLS = ("auto", "plain", "cuda")
+# the JAX package's names for the same choices: its XLA version is the
+# plain one, its Pallas kernel the hand-written one
+IMPL_ALIASES = {"xla": "plain", "pallas": "cuda"}
+
+
+def resolve_impl(impl: str) -> str:
+    """``impl`` with the JAX package's names mapped onto the port's;
+    raises on anything else."""
+    impl = IMPL_ALIASES.get(impl, impl)
+    if impl not in KERNEL_IMPLS:
+        raise ValueError(f"kernel_impl must be one of "
+                         f"{KERNEL_IMPLS + tuple(IMPL_ALIASES)}, got "
+                         f"{impl!r}")
+    return impl
 
 
 def _sqdist(Xa, Xb):
-    """Pairwise squared Euclidean distances via the rank-P identity."""
+    """Pairwise squared Euclidean distances via the rank-P identity; the
+    product is IEEE fp32 under any precision setting."""
     ra = torch.sum(Xa * Xa, dim=1)
     rb = torch.sum(Xb * Xb, dim=1)
-    d2 = ra[:, None] + rb[None, :] - 2.0 * (Xa @ Xb.T)
+    with rank_p_ieee(Xa):
+        g = Xa @ Xb.T
+    d2 = ra[:, None] + rb[None, :] - 2.0 * g
     return torch.clamp_min(d2, 0.0)
 
 
@@ -253,9 +272,7 @@ def _gauss_tile_cuda(A, B, sigma: float, symmetric_diag: bool, tile=None,
 
 
 def _use_tile(t, impl: str) -> bool:
-    if impl not in KERNEL_IMPLS:
-        raise ValueError(f"kernel_impl must be one of {KERNEL_IMPLS}, "
-                         f"got {impl!r}")
+    impl = resolve_impl(impl)
     if impl == "auto":
         return t.device.type == "cuda" and t.dtype == torch.float32
     return impl == "cuda"

@@ -7,7 +7,9 @@ fits in memory the fit recomputes K tile by tile from X, at 2N²(P+m) FLOP
 per product and O(N·(P+m)) storage.
 
 One entry point, :func:`kernel_matmul`, replaces the JAX package's
-``kernel_matmul``, ``kernel_matmul_pallas`` and their ``_fast`` aliases:
+``kernel_matmul``, ``kernel_matmul_pallas`` and their ``_fast`` aliases
+(:func:`kernel_matmul_cross` is the same product between two row sets,
+one step of the ring product in ``parallel/ring_kernel.py``):
 
     Y = (K(X)·V + init) · out_scale,
     K_ij = exp(−max(rᵢ + rⱼ − 2 xᵢ·xⱼ, 0)/σ)
@@ -44,10 +46,13 @@ import torch
 
 from .kernels import _sm_count, _sqdist, _use_tile
 
-# launches of the CUDA kernel made through ``kernel_matmul`` (calls that
-# run the plain version do not count); fast-mode launches count in both
+# launches of the CUDA kernel made through ``kernel_matmul`` and
+# ``kernel_matmul_cross`` (calls that run the plain version do not count);
+# fast-mode launches count in the fast count too, cross-entry launches in
+# the cross count too
 kernel_matmul_launches = 0
 kernel_matmul_fast_launches = 0
+kernel_matmul_cross_launches = 0
 
 
 def _span(t):
@@ -66,18 +71,25 @@ def _overlaps(a, b) -> bool:
     return alo < bhi and blo < ahi
 
 
-def _check(X, V, sigma, init, out):
+def _check(X, V, sigma, init, out, Xb=None):
     """Argument checks shared by both implementations, so that a call the
-    CUDA kernel would refuse is refused on the CPU too."""
-    if X.dim() != 2 or V.dim() != 2 or X.shape[0] != V.shape[0]:
-        raise ValueError(f"kernel_matmul: need X (N, P) and V (N, m), got "
-                         f"{tuple(X.shape)} and {tuple(V.shape)}")
-    if 0 in X.shape or 0 in V.shape:
+    CUDA kernel would refuse is refused on the CPU too. ``Xb`` (Nb, P) is
+    the cross entry's second row set; V then has Nb rows and init/out
+    X's rows."""
+    Xb = X if Xb is None else Xb
+    if (X.dim() != 2 or Xb.dim() != 2 or V.dim() != 2
+            or Xb.shape[0] != V.shape[0] or X.shape[1] != Xb.shape[1]):
+        raise ValueError(f"kernel_matmul: need X (Na, P), Xb (Nb, P) and V "
+                         f"(Nb, m), got {tuple(X.shape)}, {tuple(Xb.shape)} "
+                         f"and {tuple(V.shape)}")
+    if 0 in X.shape or 0 in Xb.shape or 0 in V.shape:
         raise ValueError(f"kernel_matmul: empty operand {tuple(X.shape)}, "
-                         f"{tuple(V.shape)}")
+                         f"{tuple(Xb.shape)}, {tuple(V.shape)}")
     if not sigma > 0:
         raise ValueError("kernel_matmul: sigma must be positive")
-    for name, t in (("X", X), ("V", V), ("init", init), ("out", out)):
+    shape = (X.shape[0], V.shape[1])
+    for name, t in (("X", X), ("Xb", Xb), ("V", V), ("init", init),
+                    ("out", out)):
         if t is None:
             continue
         if t.dtype != X.dtype or t.device != X.device:
@@ -86,11 +98,11 @@ def _check(X, V, sigma, init, out):
         if not t.is_contiguous():
             raise ValueError(f"kernel_matmul: {name} must be contiguous")
     for name, t in (("init", init), ("out", out)):
-        if t is not None and t.shape != V.shape:
-            raise ValueError(f"kernel_matmul: {name} must have V's shape "
-                             f"{tuple(V.shape)}, got {tuple(t.shape)}")
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"kernel_matmul: {name} must have the shape "
+                             f"{shape}, got {tuple(t.shape)}")
     if out is not None:
-        if _overlaps(out, V) or _overlaps(out, X):
+        if _overlaps(out, V) or _overlaps(out, X) or _overlaps(out, Xb):
             raise ValueError("kernel_matmul: out must not alias X or V")
         if init is not None and _overlaps(out, init) and (
                 out.data_ptr() != init.data_ptr()):
@@ -100,19 +112,21 @@ def _check(X, V, sigma, init, out):
 
 def kernel_matmul_plain(X, V, sigma, *, init=None, out_scale=None,
                         fast_accum: bool = False, block: int = 1024,
-                        out=None):
+                        out=None, Xb=None):
     """Plain PyTorch version of the CUDA kernel: a loop over column blocks
-    of K, each step materializing one (N, block) tile.
+    of K, each step materializing one (N, block) tile. With ``Xb`` it is
+    the cross entry's: K(X, Xb)·V for V with Xb's rows.
 
     The tile·V product is a plain f32 ``addmm``; ``fast_accum`` runs it
     (and nothing else) under TF32 on a CUDA tensor and has no effect on the
     CPU. ``out`` receives the result
     and may be ``init`` itself."""
     sigma = float(sigma)
-    _check(X, V, sigma, init, out)
-    n = X.shape[0]
+    _check(X, V, sigma, init, out, Xb)
+    Xb = X if Xb is None else Xb
+    n = Xb.shape[0]
     if out is None:
-        out = torch.empty_like(V)
+        out = X.new_empty((X.shape[0], V.shape[1]))
     if init is None:
         out.zero_()
     elif out.data_ptr() != init.data_ptr():
@@ -121,7 +135,7 @@ def kernel_matmul_plain(X, V, sigma, *, init=None, out_scale=None,
     old = torch.backends.cuda.matmul.allow_tf32
     for lo in range(0, n, block):
         hi = min(lo + block, n)
-        tile = torch.exp(-_sqdist(X, X[lo:hi]) / sigma)
+        tile = torch.exp(-_sqdist(X, Xb[lo:hi]) / sigma)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         try:
             out.addmm_(tile, V[lo:hi])
@@ -208,6 +222,27 @@ def kernel_matmul(X, V, sigma, *, init=None, out_scale=None,
                                bool(fast_accum), out)
 
 
+def kernel_matmul_cross(Xa, Xb, V, sigma, *, init=None, out_scale=None,
+                        fast_accum: bool = False, impl: str = "auto",
+                        block: int = 1024, out=None):
+    """``(K(Xa, Xb)·V + init) · out_scale`` for Xa (Na, P), Xb (Nb, P) and
+    V (Nb, m); the result is (Na, m). One step of the ring product: a
+    shard's rows against a visiting block.
+
+    The same kernel as :func:`kernel_matmul`, through its cross entry (two
+    norm pre-passes, row and column bounds apart); ``kernel_matmul(X, V)``
+    equals ``kernel_matmul_cross(X, X, V)`` bit for bit. ``impl``,
+    ``fast_accum``, ``init``, ``out_scale`` and ``out`` as there: ``out``
+    may be ``init`` itself and must not alias Xa, Xb or V."""
+    if not _use_tile(Xa, impl) or Xa.device.type == "cpu":
+        return kernel_matmul_plain(Xa, V, sigma, init=init,
+                                   out_scale=out_scale,
+                                   fast_accum=fast_accum, block=block,
+                                   out=out, Xb=Xb)
+    return _kernel_matmul_cuda(Xa, V, float(sigma), init, out_scale,
+                               bool(fast_accum), out, Xb=Xb)
+
+
 # widths of a block's output tile, in 64-column units (the kernel's NT). The
 # widest, 5, is half of a pair: two blocks on neighbouring SMs, 320 columns
 # each, that build one K tile between them (32 rows each, written into both
@@ -265,21 +300,23 @@ def _stage_v(V):
 
 
 def _kernel_matmul_cuda(X, V, sigma, init, out_scale, fast_accum, out,
-                        n_tiles: int = 0, mode: str | None = None):
+                        n_tiles: int = 0, mode: str | None = None, Xb=None):
     """Launch the CUDA kernel. ``n_tiles`` forces the width of the block's
     output tile to 64·n_tiles columns (1, 4 or 5, the pair); 0 takes
     :func:`_tile_plan`'s. The result does not depend on it, bit for bit.
     ``mode`` ("split", "fast" or "fma") overrides the mode that
     ``fast_accum`` selects: "fma" is the IEEE fp32 pass without tensor
-    cores that tools and tests measure the split product against."""
+    cores that tools and tests measure the split product against. ``Xb``
+    (not None) launches the cross entry."""
     global kernel_matmul_launches, kernel_matmul_fast_launches
+    global kernel_matmul_cross_launches
     if X.device.type != "cuda":
         raise ValueError(f"kernel_matmul: the CUDA kernel needs a CUDA "
                          f"tensor, got {X.device}")
     if X.dtype != torch.float32:
         raise TypeError(f"kernel_matmul: the CUDA kernel takes float32, "
                         f"got {X.dtype}")
-    _check(X, V, sigma, init, out)
+    _check(X, V, sigma, init, out, Xb)
     n, p = X.shape
     m = V.shape[1]
     if (m + 63) // 64 > 65535:
@@ -297,20 +334,29 @@ def _kernel_matmul_cuda(X, V, sigma, init, out_scale, fast_accum, out,
     lib = library()
     if out is None:
         out = torch.empty((n, m), dtype=torch.float32, device=X.device)
-    r = torch.empty((n,), dtype=torch.float32, device=X.device)
+    nb = 0 if Xb is None else Xb.shape[0]
+    r = torch.empty((n + nb,), dtype=torch.float32, device=X.device)
     Vk, ldv = _stage_v(V)
+    init_ptr = None if init is None else init.data_ptr()
+    scale = 1.0 if out_scale is None else float(out_scale)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = lib.kernel_matmul_f32(
-            X.data_ptr(), Vk.data_ptr(), ldv,
-            None if init is None else init.data_ptr(), r.data_ptr(),
-            out.data_ptr(), n, p, m, sigma,
-            1.0 if out_scale is None else float(out_scale),
-            _MODES[mode], int(n_tiles), stream)
+        if Xb is None:
+            err = lib.kernel_matmul_f32(
+                X.data_ptr(), Vk.data_ptr(), ldv, init_ptr, r.data_ptr(),
+                out.data_ptr(), n, p, m, sigma, scale, _MODES[mode],
+                int(n_tiles), stream)
+        else:
+            err = lib.kernel_matmul_cross_f32(
+                X.data_ptr(), n, Xb.data_ptr(), nb, Vk.data_ptr(), ldv,
+                init_ptr, r.data_ptr(), out.data_ptr(), p, m, sigma, scale,
+                _MODES[mode], int(n_tiles), stream)
     if err != 0:
         raise RuntimeError(f"kernel_matmul: CUDA launch failed with error "
                            f"{err}")
     kernel_matmul_launches += 1
+    if Xb is not None:
+        kernel_matmul_cross_launches += 1
     if mode == "fast":
         kernel_matmul_fast_launches += 1
     return out

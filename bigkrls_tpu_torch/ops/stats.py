@@ -49,14 +49,19 @@ def _normalized_rows(X_std):
     return Z / torch.sqrt(torch.sum(Z * Z, dim=1, keepdim=True))
 
 
-def neffective_acf(X_std, block: int = 0) -> float:
+def neffective_acf(X_std, block: int = 0,
+                   memory_budget: int = None) -> float:
     """Autocorrelation-based effective N (``src/Neffective.cpp:13-76``):
     rows de-meaned over P and scaled to unit norm, r = Σ_{i<j}|zᵢ·zⱼ|,
     Neff = N(1 − 2r/N²) + 1. Above 8192 rows (or with ``block``) the Gram
-    is streamed in (N, block) slabs sized to the device's memory."""
+    is streamed in (N, block) slabs sized to the device's memory, or to
+    ``memory_budget`` bytes when it is given (as in the JAX package:
+    it sizes the slab and changes nothing else)."""
     n = X_std.shape[0]
     if block == 0 and n > 8192:
-        if X_std.device.type == "cuda":
+        if memory_budget is not None:
+            budget = int(memory_budget)
+        elif X_std.device.type == "cuda":
             budget = torch.cuda.mem_get_info(X_std.device)[1]
         else:
             budget = 8 << 30

@@ -1,0 +1,150 @@
+"""Multi-process initialization, ported from
+``bigkrls_tpu/parallel/distributed.py`` onto ``torch.distributed``.
+
+One process per host (or per card) joins a process group; a mesh built
+by :func:`global_mesh` then holds every process's shards, each process
+keeping its own (``parallel/sharded.py``). Gathers become collectives and
+the ring's rotation across a process boundary becomes point-to-point
+sends (``parallel/ring_kernel.py``). The backend is gloo for CPU shards
+and NCCL for CUDA ones.
+
+The JAX semantics are kept: with no arguments and no cluster environment
+the call is a no-op (one process); with explicit arguments, a group that
+cannot form raises; a second call changes nothing.
+"""
+from __future__ import annotations
+
+import datetime
+import logging
+import os
+from typing import Optional, Sequence
+
+import torch
+
+log = logging.getLogger("bigkrls_tpu_torch")
+
+# the environment a launcher such as torchrun sets for every process
+_CLUSTER_ENV = ("MASTER_ADDR", "WORLD_SIZE", "RANK")
+
+
+def is_initialized() -> bool:
+    """True once this process has joined a process group."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _local_devices(device_type: str, local_device_ids=None):
+    if device_type == "cuda":
+        ids = (range(torch.cuda.device_count()) if local_device_ids is None
+               else local_device_ids)
+        return [torch.device("cuda", int(i)) for i in ids]
+    n = 1 if local_device_ids is None else len(local_device_ids)
+    return [torch.device("cpu")] * n
+
+
+def initialize_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
+    device_type: Optional[str] = None,
+    timeout_s: float = 60.0,
+) -> int:
+    """Join the process group; returns the global device count (this
+    process's local devices, summed over processes).
+
+    ``coordinator_address`` is "host:port" of rank 0; ``num_processes``
+    the world size and ``process_id`` this process's rank. With none of
+    them and no cluster environment (``MASTER_ADDR``, ``WORLD_SIZE``,
+    ``RANK``, as a launcher sets them) the call is the single-process
+    no-op. An explicit request that cannot form, including a world of
+    more than one process without an address, raises. ``device_type``
+    ("cuda" or "cpu", default "cuda" when a card is visible) picks NCCL or
+    gloo; ``local_device_ids`` names this process's CUDA devices (for
+    "cpu", its length is the number of virtual CPU shards)."""
+    import torch.distributed as dist
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    local = _local_devices(device_type, local_device_ids)
+    if is_initialized():
+        return _global_count(len(local))
+
+    explicit = coordinator_address is not None or (
+        num_processes is not None and num_processes > 1)
+    env = all(k in os.environ for k in _CLUSTER_ENV)
+    if not explicit and not env:
+        log.debug("single-process run: no cluster arguments or environment")
+        return len(local)
+    if explicit and (coordinator_address is None or num_processes is None
+                     or process_id is None):
+        raise ValueError(
+            "initialize_distributed: an explicit multi-process request needs "
+            "coordinator_address, num_processes and process_id")
+    backend = "nccl" if device_type == "cuda" else "gloo"
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if explicit:
+        if backend == "nccl" and local:
+            torch.cuda.set_device(local[0])
+        dist.init_process_group(backend=backend,
+                                init_method=f"tcp://{coordinator_address}",
+                                world_size=int(num_processes),
+                                rank=int(process_id), timeout=timeout)
+    else:
+        dist.init_process_group(backend=backend, init_method="env://",
+                                timeout=timeout)
+    return _global_count(len(local))
+
+
+def _global_count(n_local: int) -> int:
+    """Every process's local device count, summed (a collective)."""
+    import torch.distributed as dist
+    if not is_initialized():
+        return n_local
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, int(n_local))
+    return sum(counts)
+
+
+def global_mesh(shape: Optional[Sequence[int]] = None,
+                local_devices: Optional[Sequence] = None):
+    """A 2-D ("i", "j") mesh over every process's devices, rank by rank.
+    ``local_devices`` are this process's (default: every visible CUDA
+    device, else one ``cpu``; CPU shards may repeat ``cpu``)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from .sharded import Mesh, make_mesh
+    if local_devices is None:
+        local_devices = _local_devices(
+            "cuda" if torch.cuda.is_available() else "cpu")
+    local_devices = [torch.device(d) for d in local_devices]
+    if not is_initialized():
+        return make_mesh(shape=shape, devices=local_devices)
+    world = dist.get_world_size()
+    everyone = [None] * world
+    dist.all_gather_object(everyone, [str(d) for d in local_devices])
+    devices, procs = [], []
+    for rank, names in enumerate(everyone):
+        devices += [torch.device(nm) for nm in names]
+        procs += [rank] * len(names)
+    mesh = make_mesh(shape=shape, devices=devices)
+    return Mesh(mesh.devices, mesh.axis_names,
+                processes=np.asarray(procs).reshape(mesh.devices.shape))
+
+
+def process_info(local_devices: Optional[int] = None) -> dict:
+    """This process's index, the process count and the device split (the
+    JAX keys). ``local_devices`` defaults to the visible CUDA devices
+    (one, the CPU, without a card)."""
+    import torch.distributed as dist
+    n_local = local_devices
+    if n_local is None:
+        n_local = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 1
+    init = is_initialized()
+    return {
+        "process_index": dist.get_rank() if init else 0,
+        "process_count": dist.get_world_size() if init else 1,
+        "local_devices": int(n_local),
+        "global_devices": _global_count(int(n_local)),
+    }

@@ -29,7 +29,7 @@ import torch
 
 from .ops.kernels import cross_kernel_matrix
 from .types import KRLSModel, KRLSPrediction
-from .utils.precision import ieee_fp32
+from .utils.precision import matmul_precision
 
 AUTO_BLOCK_ELEMS = 50_000_000
 
@@ -47,9 +47,11 @@ def _np(t) -> np.ndarray:
 
 def predict(model: KRLSModel, newdata, se_pred: bool = False,
             correct_SE: bool = True, ytest=None,
-            materialize_vcov: bool = False,
+            materialize_vcov: bool = False, precision: str = "highest",
             block_size: int = None) -> KRLSPrediction:
-    with ieee_fp32():
+    """Predictions (and standard errors) for ``newdata``; ``precision``
+    sets the product precision, as in ``fit`` (``utils/precision``)."""
+    with matmul_precision(precision):
         return _predict_impl(model, newdata, se_pred, correct_SE, ytest,
                              materialize_vcov, block_size)
 

@@ -1,7 +1,7 @@
 """Pure fit-route selection, copied from ``bigkrls_tpu/routing.py``.
 
-The port runs all four routes on one device; ``model.fit`` raises for a
-mesh (ROADMAP item 18).
+The port runs all four routes, on one device or over a mesh
+(``parallel/``).
 
 The eigendecomposition-route decision — which of the four execution
 strategies a fit takes through steps 2–4 — used to live as interleaved

@@ -55,6 +55,11 @@ class FactoredCovariance:
         """Dense N×N matrix ``scale * Q diag(spectrum) Qᵀ``."""
         return self.scale * ((self.Q * self.spectrum[None, :]) @ self.Q.T)
 
+    def diag(self) -> Array:
+        """Diagonal in O(N·k)."""
+        return self.scale * torch.sum((self.Q * self.Q)
+                                      * self.spectrum[None, :], dim=1)
+
     def quad_form(self, A: Array) -> Array:
         """``scale * Aᵀ (Q S Qᵀ) A`` for (N, m) ``A`` in O(N·k·m)."""
         QtA = self.Q.T @ A
@@ -65,6 +70,10 @@ class FactoredCovariance:
         QtA = self.Q.T @ A
         return self.scale * torch.sum(QtA * QtA * self.spectrum[:, None],
                                       dim=0)
+
+    def scaled(self, factor: float) -> "FactoredCovariance":
+        """The same factors with ``scale`` multiplied by ``factor``."""
+        return FactoredCovariance(self.Q, self.spectrum, self.scale * factor)
 
 
 @dataclasses.dataclass

@@ -46,7 +46,17 @@
    and of the N=50,000 streaming fit (the native store, one K2 launch on
    the resume, λ* and coefficients bit-equal); the command line as
    subprocesses; a ``trace_dir`` trace that names K1;
-9. prints one JSON line for the kernels, then the result line.
+9. the mesh phase (``parallel/``), every mesh of virtual shards of the one
+   card: K2's cross entry (one ring step) against its plain version at a
+   ring step of the N=50,000 fit, a ragged shape and in fast mode, with the
+   square entry bit-equal to the cross entry with Xa = Xb, timed beside its
+   bound; the N=50,000 streaming fit over a ring of 4 shards (16 K2 cross
+   launches a product) held against the single-device streaming fit; the
+   default fit at N=3106, P=67 over a 2×2 mesh (the adaptive route, one K1
+   launch per block) held against the single-device fit; a full-spectrum
+   fit by block Jacobi at N=1024 held against the gathered ``eigh``; a
+   one-rank NCCL process group;
+10. prints one JSON line for the kernels, then the result line.
 
 Any failed check exits non-zero without the result line. No JAX is used.
 """
@@ -453,6 +463,10 @@ class Counts:
         kernels.gauss_tile_launches = 0
         matvec.kernel_matmul_launches = 0
         matvec.kernel_matmul_fast_launches = 0
+        matvec.kernel_matmul_cross_launches = 0
+
+    def cross(self):
+        return self.m.kernel_matmul_cross_launches
 
     def read(self):
         return (self.k.gauss_tile_launches, self.m.kernel_matmul_launches,
@@ -1032,6 +1046,262 @@ def workflows_phase(bt, m_dense, m_stream, warm_dense_s, warm_stream_s,
                    "streaming_resume": k2_resume}}
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: parallel/ on virtual shards of the one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+# K2's cross entry (Na, Nb, P, m): a ring step of the N=50,000 fit on 4
+# shards, and a ragged one at the dense fit's width; fast mode at the first
+K2_CROSS_SHAPES = [(SN // MESH_SHARDS, SN // MESH_SHARDS, SP, SQ),
+                   (N, N // 2, P, 22)]
+# each ring product is MESH_SHARDS² cross launches; the N=50,000 fit makes
+# 7 products at m=540 (6 power + Ritz) and 1 at m=22 (derivatives and ŷ)
+RING_PRODUCTS = 8
+JACOBI_N = 1024
+
+
+def k2_cross_bound_ms(na, nb, p, m, mode):
+    """(ms, bound_by) of one cross product, as ``k2_bound_ms``: Xa, Xb, V
+    read once and Y written once over the memory rate, or 2·Na·Nb·P fp32
+    plus passes·2·Na·Nb·m TF32 operations over their peaks."""
+    t_bytes = 4 * (na * p + nb * p + nb * m + na * m) / PEAK_HBM
+    t_ops = (2 * na * nb * p / PEAK_FP32
+             + K2_PASSES[mode] * 2 * na * nb * m / PEAK_TF32)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def check_k2_cross(failures):
+    """The cross entry against its plain version (precise mode within
+    ``k2_tol``; fast mode within ``K2_FAST_TOL`` of the plain version under
+    TF32, as for the square entry), the square entry bit-equal to the cross
+    entry with Xa = Xb in both modes, and the times beside the bound."""
+    from bigkrls_tpu_torch.ops import matvec
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    out = {}
+    for na, nb, p, m in K2_CROSS_SHAPES:
+        Xa = torch.randn((na, p), generator=gen, device="cuda")
+        Xb = torch.randn((nb, p), generator=gen, device="cuda")
+        V = torch.randn((nb, m), generator=gen, device="cuda")
+        Vs = torch.randn((na, m), generator=gen, device="cuda")
+        sigma, tol = float(p), k2_tol(nb)
+        Y = matvec.kernel_matmul_cross(Xa, Xb, V, sigma)
+        ref = matvec.kernel_matmul_plain(Xa, V, sigma, Xb=Xb)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        err = (Y - ref).abs().max().item()
+        same = all(torch.equal(
+            matvec.kernel_matmul(Xa, Vs, sigma, fast_accum=f),
+            matvec.kernel_matmul_cross(Xa, Xa, Vs, sigma, fast_accum=f))
+            for f in (False, True))
+        t_k = cuda_ms(lambda: matvec.kernel_matmul_cross(Xa, Xb, V, sigma),
+                      10, 2)
+        t_p = cuda_ms(lambda: matvec.kernel_matmul_plain(Xa, V, sigma,
+                                                         Xb=Xb), 10, 2)
+        bound, by = k2_cross_bound_ms(na, nb, p, m, "split")
+        line = (f"K2 cross ({na}x{nb},P={p},m={m}): max|d|/max|Y| vs plain "
+                f"f32 {err / scale:.3e} (limit {tol:.1e}); square entry "
+                f"bit-equal to the cross entry with Xa = Xb: {same}; kernel "
+                f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bound:.4f} ms "
+                f"({by})")
+        if not err <= tol * scale:
+            failures.append(f"K2 cross ({na},{nb},{p},{m}): {err / scale} > "
+                            f"{tol}")
+        if not same:
+            failures.append(f"K2 cross ({na},{nb},{p},{m}): the square entry "
+                            "differs from the cross entry with Xa = Xb")
+        if (na, nb, p, m) == K2_CROSS_SHAPES[0]:
+            Yf = matvec.kernel_matmul_cross(Xa, Xb, V, sigma, fast_accum=True)
+            ref_f = matvec.kernel_matmul_plain(Xa, V, sigma, Xb=Xb,
+                                               fast_accum=True)
+            torch.cuda.synchronize()
+            err_f = (Yf - ref_f).abs().max().item()
+            t_f = cuda_ms(lambda: matvec.kernel_matmul_cross(
+                Xa, Xb, V, sigma, fast_accum=True), 10, 2)
+            bound_f = k2_cross_bound_ms(na, nb, p, m, "fast")[0]
+            line += (f"; fast mode max|d|/max|Y| vs plain TF32 "
+                     f"{err_f / scale:.3e} (limit {K2_FAST_TOL:g}), "
+                     f"{t_f:.4f} ms, bound {bound_f:.4f} ms")
+            if not err_f <= K2_FAST_TOL * scale:
+                failures.append(f"K2 cross fast: {err_f / scale} > "
+                                f"{K2_FAST_TOL}")
+            out.update(cross_shape=[na, nb, p, m], cross_ms=t_k,
+                       cross_plain_ms=t_p, cross_bound_ms=bound,
+                       cross_bound_by=by, cross_max_abs_err=err,
+                       cross_fast_ms=t_f, cross_fast_bound_ms=bound_f,
+                       cross_fast_max_abs_err=err_f)
+            del Yf, ref_f
+        print(line, flush=True)
+        del Xa, Xb, V, Vs, Y, ref
+    return out
+
+
+def ring_fit(bt, mesh, m_stream, warm_stream_s, failures):
+    """The N=50,000 streaming fit over a ring of the mesh's shards, held
+    against the single-device streaming fit. Returns K2's cross launches in
+    the fit and the warm fit time."""
+    y, X = streaming_data(SN)
+    kw = dict(neig=SNEIG, which_derivatives=[0, 1, 2, 3, 4], mesh=mesh)
+    counts = Counts()
+    t0 = time.perf_counter()
+    m = bt.fit(y, X, **kw)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    _, k2, k2_fast = counts.read()
+    cross = counts.cross()
+    t0 = time.perf_counter()
+    m_warm = bt.fit(y, X, noisy=False, **kw)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    want = RING_PRODUCTS * MESH_SHARDS ** 2
+    rep = m.sharding_report
+    print(f"ring streaming fit N={SN} over {MESH_SHARDS} shards of cuda:0: "
+          f"cold {cold:.3f} s, warm {warm:.3f} s (single device warm "
+          f"{warm_stream_s:.3f} s), timings {json.dumps(m_warm.timings)}; "
+          f"eig_path {m.eig_path}, lambda {m.lambda_:.6g}, lastkeeper "
+          f"{m.lastkeeper}; K2 launches {k2} (cross {cross}, fast {k2_fast}; "
+          f"expected {want} = {RING_PRODUCTS} products x {MESH_SHARDS}^2); "
+          f"Q {rep['Q']}", flush=True)
+    if (k2, cross, k2_fast) != (want, want, 0):
+        failures.append(f"ring fit: K2 launches {k2}, cross {cross}, fast "
+                        f"{k2_fast}; expected {want} cross launches")
+    if m.eig_path != "streaming-krylov" or m.K is not None:
+        failures.append(f"ring fit took {m.eig_path!r}")
+    if rep["X_std"]["devices"] != MESH_SHARDS or rep["Q"]["replicated"]:
+        failures.append(f"ring fit: sharding report {rep}")
+    print("ring fit vs the single-device streaming fit (card f32):")
+    compare(m, m_stream, bt.predict(m, X[:10], se_pred=True),
+            bt.predict(m_stream, X[:10], se_pred=True), y, failures)
+    del m, m_warm
+    torch.cuda.empty_cache()
+    return cross, warm
+
+
+def dense_mesh_fit(bt, mesh, m_dense, failures):
+    """The default fit at N=3106, P=67 over a 2×2 mesh: the adaptive route,
+    one K1 launch per block; held against the single-device card fit.
+    Returns K1's launches in the fit and the warm fit time."""
+    from bigkrls_tpu_torch.ops import kernels
+    y, X = smoke_data()
+    counts = Counts()
+    m = bt.fit(y, X, mesh=mesh)
+    torch.cuda.synchronize()
+    k1 = kernels.gauss_tile_launches
+    t0 = time.perf_counter()
+    m_warm = bt.fit(y, X, mesh=mesh, noisy=False)
+    warm = time.perf_counter() - t0
+    rep = m.sharding_report
+    print(f"dense fit N={N} P={P} over a {mesh.shape[0]}x{mesh.shape[1]} mesh "
+          f"of cuda:0: eig_path {m.eig_path}, lambda {m.lambda_:.6g}, "
+          f"lastkeeper {m.lastkeeper}; K1 launches {k1} (expected "
+          f"{mesh.size}, one per block); warm {warm:.3f} s, timings "
+          f"{json.dumps(m_warm.timings)}; K {rep['K']}, Q {rep['Q']}",
+          flush=True)
+    del counts
+    if not (m.eig_path or "").startswith("adaptive-krylov"):
+        failures.append(f"dense mesh fit took {m.eig_path!r}, not the "
+                        "adaptive route")
+    if k1 != mesh.size:
+        failures.append(f"dense mesh fit: K1 launched {k1} times, expected "
+                        f"{mesh.size}")
+    if rep["K"]["devices"] != mesh.size or rep["Q"]["devices"] !=             mesh.shape[0]:
+        failures.append(f"dense mesh fit: sharding report {rep}")
+    print("dense mesh fit vs the single-device card fit:")
+    compare(m, m_dense, bt.predict(m, X[:10], se_pred=True),
+            bt.predict(m_dense, X[:10], se_pred=True), y, failures)
+    return k1, warm
+
+
+def jacobi_fit(bt, mesh, failures):
+    """A full-spectrum fit at N=1024 with block Jacobi forced over the mesh,
+    against the same fit by the gathered ``eigh``; no fallback allowed."""
+    import logging
+    y, X = smoke_data()
+    y, X = y[:JACOBI_N], X[:JACOBI_N]
+    # eigtrunc as at N > 3000, so that lastkeeper does not hang on the sign
+    # of f32 noise in the smallest eigenvalues
+    kw = dict(eigtrunc=1e-3, noisy=False)
+    warned = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    log = logging.getLogger("bigkrls_tpu_torch")
+    handler = Catch(level=logging.WARNING)
+    log.addHandler(handler)
+    try:
+        t0 = time.perf_counter()
+        mj = bt.fit(y, X, mesh=mesh, eig_method="jacobi", **kw)
+        torch.cuda.synchronize()
+        t_j = time.perf_counter() - t0
+    finally:
+        log.removeHandler(handler)
+    t0 = time.perf_counter()
+    mf = bt.fit(y, X, mesh=mesh, eig_method="full", **kw)
+    torch.cuda.synchronize()
+    t_f = time.perf_counter() - t0
+    top = np.abs(mj.K_eigenvalues[:20] - mf.K_eigenvalues[:20]).max()         / mf.K_eigenvalues[0]
+    print(f"Jacobi fit N={JACOBI_N} ({mj.eig_path}, {t_j:.3f} s) vs full "
+          f"eigh ({mf.eig_path}, {t_f:.3f} s): lambda {mj.lambda_:.6g} / "
+          f"{mf.lambda_:.6g}, top-20 eigenvalues max|d|/lambda_1 {top:.3e}; "
+          f"fallback warnings {warned}", flush=True)
+    if mj.eig_path != "stepwise:jacobi" or warned:
+        failures.append(f"Jacobi fit: {mj.eig_path!r}, warnings {warned}")
+    if not top <= 1e-5:
+        failures.append(f"Jacobi eigenvalues: {top} of lambda_1 from eigh's")
+    compare(mj, mf, bt.predict(mj, X[:10], se_pred=True),
+            bt.predict(mf, X[:10], se_pred=True), y, failures)
+    return t_j
+
+
+def nccl_group(failures):
+    """A one-rank NCCL group: initialize_distributed with explicit
+    arguments, process_info, global_mesh, then the group destroyed."""
+    import socket
+    import torch.distributed as dist
+    from bigkrls_tpu_torch.parallel import distributed
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    n = distributed.initialize_distributed(f"127.0.0.1:{port}", 1, 0,
+                                           device_type="cuda")
+    try:
+        info = distributed.process_info()
+        mesh = distributed.global_mesh()
+        backend = dist.get_backend()
+        ok = (distributed.is_initialized() and backend == "nccl"
+              and info["process_count"] == 1 and info["process_index"] == 0
+              and info["global_devices"] == n == torch.cuda.device_count()
+              and mesh.size == n)
+        print(f"one-rank NCCL group: backend {backend}, {info}, mesh "
+              f"{mesh}: ok={ok}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    if not ok or distributed.is_initialized():
+        failures.append("one-rank NCCL group")
+
+
+def mesh_phase(bt, m_dense, m_stream, warm_stream_s, failures):
+    """``parallel/`` on virtual shards of the card. Returns the numbers for
+    the kernels line."""
+    from bigkrls_tpu_torch.parallel.sharded import make_mesh
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * MESH_SHARDS)
+    cross = check_k2_cross(failures)
+    k2_ring, ring_warm = ring_fit(bt, mesh, m_stream, warm_stream_s,
+                                  failures)
+    k1_mesh, dense_warm = dense_mesh_fit(bt, mesh, m_dense, failures)
+    jacobi_fit(bt, mesh, failures)
+    nccl_group(failures)
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k1": {"dense_mesh_fit_blocks": k1_mesh},
+            "k2": {"ring_fit_cross": k2_ring}, "cross": cross,
+            "ring_warm_s": ring_warm, "dense_mesh_warm_s": dense_warm}
+
+
 def compare(m_gpu, m_cpu, pred_gpu, pred_cpu, y, failures):
     checks = [
         ("lambda rel", rel(m_gpu.lambda_, m_cpu.lambda_), TOL_LAMBDA_REL),
@@ -1157,18 +1427,20 @@ def main() -> int:
     chebyshev_phase(failures)
     wf = workflows_phase(bt, m, m_stream, statistics.median(warm),
                          warm_stream, failures)
+    mp = mesh_phase(bt, m, m_stream, warm_stream, failures)
 
     print(json.dumps({"kernels": [{
         "name": "gauss_tile", "route": "cuda",
         "source": "bigkrls_tpu_torch/csrc/gauss_kernel.cu",
         "replaces": "bigkrls_tpu/ops/kernels.py:87",
         "launches": launches, "library_ms": None,
-        "workflow_launches": wf["k1"], **k1}, {
+        "workflow_launches": wf["k1"], "mesh_launches": mp["k1"], **k1}, {
         "name": "kernel_matmul", "route": "cuda",
         "source": "bigkrls_tpu_torch/csrc/kernel_matmul.cu",
         "replaces": "bigkrls_tpu/ops/matvec.py:139",
         "launches": k2_launches, "library_ms": None,
-        "workflow_launches": wf["k2"], **k2}]}))
+        "workflow_launches": wf["k2"], "mesh_launches": mp["k2"],
+        **mp["cross"], **k2}]}))
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1

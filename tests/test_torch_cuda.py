@@ -275,6 +275,85 @@ def test_kernel_matmul_fast_mode(cuda, n, p, m):
     assert (Y - ref).abs().max().item() <= 5e-3 * ref.abs().max().item()
 
 
+# (Na, Nb, P, m): a ring step of the N=50,000 fit on 4 shards (scaled
+# down), ragged row counts on both sides, fewer rows than one tile, P past
+# one chunk, and the derivatives stack's width
+K2_CROSS_SHAPES = [(3125, 3125, 20, 540), (3106, 1553, 67, 22),
+                   (1553, 3106, 67, 22), (63, 130, 5, 64), (700, 65, 40, 1),
+                   (1000, 1000, 20, 541)]
+
+
+@pytest.mark.parametrize("na,nb,p,m", K2_CROSS_SHAPES)
+def test_kernel_matmul_cross_matches_plain(cuda, na, nb, p, m):
+    """The cross entry K(Xa, Xb)·V against the plain version with Xb, in
+    precise and fast mode and with the epilogue (out aliasing init); its
+    launches count in the cross count and the K2 count; and the square
+    entry is the cross entry with Xa = Xb, bit for bit."""
+    rng = np.random.default_rng(na + nb + p + m)
+    Xa, Xb, V, init = (torch.as_tensor(rng.normal(size=s),
+                                       dtype=torch.float32, device=cuda)
+                       for s in ((na, p), (nb, p), (nb, m), (na, m)))
+    sigma = float(p)
+    before = (matvec.kernel_matmul_launches,
+              matvec.kernel_matmul_cross_launches)
+    Y = matvec.kernel_matmul_cross(Xa, Xb, V, sigma)
+    torch.cuda.synchronize()
+    assert (matvec.kernel_matmul_launches,
+            matvec.kernel_matmul_cross_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    ref = matvec.kernel_matmul_plain(Xa, V, sigma, Xb=Xb)
+    scale = ref.abs().max().item()
+    assert Y.shape == (na, m)
+    assert (Y - ref).abs().max().item() <= _k2_tol(nb) * scale
+    Yf = matvec.kernel_matmul_cross(Xa, Xb, V, sigma, fast_accum=True)
+    ref_f = matvec.kernel_matmul_plain(Xa, V, sigma, Xb=Xb, fast_accum=True)
+    assert (Yf - ref_f).abs().max().item() <= 5e-3 * scale
+    Ye = matvec.kernel_matmul_cross(Xa, Xb, V, sigma, init=init,
+                                    out_scale=-2.5)
+    ref_e = matvec.kernel_matmul_plain(Xa, V, sigma, Xb=Xb, init=init,
+                                       out_scale=-2.5)
+    assert ((Ye - ref_e).abs().max().item()
+            <= _k2_tol(nb) * ref_e.abs().max().item())
+    buf = init.clone()
+    Ya = matvec.kernel_matmul_cross(Xa, Xb, V, sigma, init=buf,
+                                    out_scale=-2.5, out=buf)
+    assert Ya.data_ptr() == buf.data_ptr() and torch.equal(Ya, Ye)
+    Vs = torch.as_tensor(rng.normal(size=(na, m)), dtype=torch.float32,
+                         device=cuda)
+    for fast in (False, True):
+        assert torch.equal(matvec.kernel_matmul(Xa, Vs, sigma,
+                                                fast_accum=fast),
+                           matvec.kernel_matmul_cross(Xa, Xa, Vs, sigma,
+                                                      fast_accum=fast))
+
+
+@pytest.mark.parametrize("n", [4096, 4093])
+def test_ring_matmul_on_card(cuda, n):
+    """The ring product over 4 shards of the card: D² = 16 cross launches
+    a product, within the K2 tolerance of the one-device product, the
+    epilogue folded in; fast_accum reaches every step (16 fast launches)
+    and agrees with the plain version under TF32."""
+    from bigkrls_tpu_torch.parallel.ring_kernel import (make_ring_matmul,
+                                                        make_ring_mesh)
+    rng = np.random.default_rng(n)
+    X, V, init = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                                  device=cuda)
+                  for s in ((n, 20), (n, 96), (n, 96)))
+    mm = make_ring_matmul(make_ring_mesh([cuda] * 4))
+    before = (matvec.kernel_matmul_cross_launches,
+              matvec.kernel_matmul_fast_launches)
+    Y = mm(X, V, 20.0, init=init, out_scale=0.5)
+    Yf = mm(X, V, 20.0, fast_accum=True)
+    torch.cuda.synchronize()
+    assert (matvec.kernel_matmul_cross_launches,
+            matvec.kernel_matmul_fast_launches) == (before[0] + 32,
+                                                    before[1] + 16)
+    ref = matvec.kernel_matmul(X, V, 20.0, init=init, out_scale=0.5)
+    assert (Y - ref).abs().max().item() <= _k2_tol(n) * ref.abs().max().item()
+    ref_f = matvec.kernel_matmul_plain(X, V, 20.0, fast_accum=True)
+    assert (Yf - ref_f).abs().max().item() <= 5e-3 * ref_f.abs().max().item()
+
+
 @pytest.mark.parametrize("mode", ["split", "fast", "fma"])
 def test_kernel_matmul_result_does_not_depend_on_tile_width(cuda, mode):
     """The host picks the width of a block's output tile (64 or 256

@@ -105,7 +105,7 @@ def test_kernel_matrix_on_cpu(impl):
 def test_kernel_matrix_rejects_unknown_impl():
     X = torch.zeros((4, 2), dtype=torch.float64)
     with pytest.raises(ValueError, match="kernel_impl"):
-        tk.kernel_matrix(X, 2.0, "pallas")
+        tk.kernel_matrix(X, 2.0, "triton")
 
 
 def test_build_digest_tracks_sources(tmp_path):

@@ -156,9 +156,11 @@ def test_noisy_fit_logs_and_matches_quiet(rng):
 def test_unported_options_raise(rng, tmp_path):
     X = rng.normal(size=(40, 2))
     y = X[:, 0] + 0.1 * rng.normal(size=40)
+    # a mesh runs (tests/test_torch_parallel.py); one that is not a Mesh
+    # raises
     for kw in (dict(mesh=object()),
                dict(mesh=object(), streaming=True, neig=10)):
-        with pytest.raises(NotImplementedError, match="item 18"):
+        with pytest.raises(TypeError, match="Mesh"):
             bt.fit(y, X, noisy=False, **kw, **CPU64)
     # the streaming route is ported: asked for, or chosen by size, it runs
     for kw in (dict(streaming=True, neig=10),

@@ -133,7 +133,7 @@ def test_kernel_matmul_out_may_alias_init_only():
     with pytest.raises(ValueError, match="sigma"):
         tmv.kernel_matmul(X, V, 0.0)
     with pytest.raises(ValueError, match="kernel_impl"):
-        tmv.kernel_matmul(X, V, 3.0, impl="pallas")
+        tmv.kernel_matmul(X, V, 3.0, impl="triton")
 
 
 def test_kernel_matmul_fast_accum_is_a_noop_on_cpu():

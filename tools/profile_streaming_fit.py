@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's streaming fit on one CUDA card.
 
-    python3 tools/profile_streaming_fit.py [N] [neig]
+    python3 tools/profile_streaming_fit.py [N] [neig] [--ring D]
 
 Runs ``bigkrls_tpu_torch.fit`` on the N=50,000, P=20, ``neig=500`` streaming
 recipe of ``chip_smoke.py`` (cold, then three warm fits timed by the wall
 clock), then one more warm fit under ``torch.profiler``. Prints the card
 (``nvidia-smi`` name and power limit), the warm fits' phase timings, the
 profiled fit's device-busy share and the device time by kernel, K2
-(``kernel_matmul_kernel``) first. No JAX is used.
+(``kernel_matmul_kernel``) first. ``--ring D`` runs the fit over a mesh
+of D virtual shards of the card (``fit(mesh=...)``: the ring product, D²
+launches of K2's cross entry a product). No JAX is used.
 """
 from __future__ import annotations
 
@@ -30,8 +32,14 @@ def main() -> int:
         return 1
     import bigkrls_tpu_torch as bt
     from bigkrls_tpu_torch.ops import _build
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 50_000
-    neig = int(sys.argv[2]) if len(sys.argv) > 2 else 500
+    args = sys.argv[1:]
+    ring = 0
+    if "--ring" in args:
+        i = args.index("--ring")
+        ring = int(args[i + 1])
+        del args[i:i + 2]
+    n = int(args[0]) if len(args) > 0 else 50_000
+    neig = int(args[1]) if len(args) > 1 else 500
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -43,6 +51,9 @@ def main() -> int:
     X[:, 4] = (X[:, 4] > 0)
     kw = dict(neig=neig, which_derivatives=[0, 1, 2, 3, 4], device="cuda",
               noisy=False)
+    if ring:
+        from bigkrls_tpu_torch.parallel.sharded import make_mesh
+        kw["mesh"] = make_mesh(devices=[torch.device("cuda", 0)] * ring)
 
     def timed():
         t0 = time.perf_counter()
@@ -51,8 +62,9 @@ def main() -> int:
         return time.perf_counter() - t0, m
 
     cold, m = timed()
-    print(f"N={n} P=20 neig={neig}: eig_path {m.eig_path}, cold fit "
-          f"{cold:.3f} s")
+    print(f"N={n} P=20 neig={neig}"
+          f"{f' over a ring of {ring} shards' if ring else ''}: eig_path "
+          f"{m.eig_path}, cold fit {cold:.3f} s")
     for _ in range(3):
         s, m = timed()
         print(f"warm fit {s:.4f} s, timings {json.dumps(m.timings)}")

@@ -3,6 +3,7 @@
 
     python3 tools/time_kernel_matmul.py [--shapes N,P,m ...] [--reps R]
     python3 tools/time_kernel_matmul.py --ablate [--reps R]
+    python3 tools/time_kernel_matmul.py --cross [--shapes Na,Nb,P,m ...]
 
 Without ``--ablate``: at each (N, P, m) shape, the CUDA kernel in its three
 modes, as columns: split (precise: three TF32 tensor-core passes), fast (one
@@ -23,6 +24,15 @@ a tile before its previous one has been read (NO_OVERLAP). The differences
 attribute the kernel's time to its parts, where no profiler can run; split
 minus fast is what the two extra passes and the hi/lo split cost. The
 ablated kernels compute garbage and are built into their own libraries.
+With ``--cross``: the cross entry ``kernel_matmul_cross(Xa, Xb, V)`` (one
+step of the ring product) at (Na, Nb, P, m) shapes, default a ring step of
+the N=50,000 fit on 4 shards (12500, 12500, 20, 540), a ragged
+(3106, 1553, 67, 22) and a narrow (12500, 12500, 20, 22): split and fast
+mode against the plain version (f32, and under TF32 for fast) and against
+float64, the square entry's bit-equality with ``kernel_matmul_cross(X, X,
+V)``, and the times beside the bound (2·Na·Nb·P fp32 operations plus
+3 (split) or 1 (fast) TF32 passes of 2·Na·Nb·m, or the bytes, whichever
+is larger; H100 SXM peaks).
 No JAX is used.
 """
 from __future__ import annotations
@@ -43,6 +53,63 @@ MODES = ("split", "fast", "fma")
 ABLATIONS = [(), ("NO_OVERLAP",), ("MMA",), ("MMA", "VLOAD"),
              ("MMA", "VLOAD", "EXP"), ("MMA", "VLOAD", "EXP", "GRAM")]
 ABLATE_SHAPES = [(50000, 20, 540), (50000, 20, 22)]
+CROSS_SHAPES = [(12500, 12500, 20, 540), (3106, 1553, 67, 22),
+                (12500, 12500, 20, 22)]
+# published H100 SXM peaks (dense, 700 W), as in chip_smoke.py
+PEAK_FP32, PEAK_TF32, PEAK_HBM = 67e12, 495e12, 3.35e12
+
+
+def cross_bound_ms(na, nb, p, m, passes):
+    """(ms, bound_by) of one cross product: Xa, Xb, V read once and Y
+    written once over the memory rate, or the 2·Na·Nb·P fp32 and
+    passes·2·Na·Nb·m TF32 operations over their peaks."""
+    t_bytes = 4 * (na * p + nb * p + nb * m + na * m) / PEAK_HBM
+    t_ops = 2 * na * nb * p / PEAK_FP32 + passes * 2 * na * nb * m / PEAK_TF32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def cross(gen, shapes, reps) -> bool:
+    """The cross entry at each shape; returns False when a check fails."""
+    from bigkrls_tpu_torch.ops import matvec
+    ok = True
+    for na, nb, p, m in shapes:
+        Xa = torch.randn((na, p), generator=gen, device="cuda")
+        Xb = torch.randn((nb, p), generator=gen, device="cuda")
+        V = torch.randn((nb, m), generator=gen, device="cuda")
+        sigma = float(p)
+        ref64 = matvec.kernel_matmul_plain(Xa.double(), V.double(), sigma,
+                                           Xb=Xb.double())
+        scale = ref64.abs().max().item()
+        ref = matvec.kernel_matmul_plain(Xa, V, sigma, Xb=Xb)
+        ref_f = matvec.kernel_matmul_plain(Xa, V, sigma, Xb=Xb,
+                                           fast_accum=True)
+        cells = []
+        for mode, fast, plain in (("split", False, ref), ("fast", True, ref_f)):
+            Y = matvec.kernel_matmul_cross(Xa, Xb, V, sigma, fast_accum=fast)
+            torch.cuda.synchronize()
+            err = (Y - plain).abs().max().item() / scale
+            err64 = (Y - ref64).abs().max().item() / scale
+            t = ms(lambda: matvec.kernel_matmul_cross(Xa, Xb, V, sigma,
+                                                      fast_accum=fast), reps)
+            bound, by = cross_bound_ms(na, nb, p, m, 3 if mode == "split"
+                                       else 1)
+            cells.append(f"{mode} {t:.3f} ms (bound {bound:.3f}, {by}; err vs "
+                         f"plain {err:.2e}, vs f64 {err64:.2e})")
+        t_p = ms(lambda: matvec.kernel_matmul_plain(Xa, V, sigma, Xb=Xb),
+                 reps)
+        Vs = torch.randn((na, m), generator=gen, device="cuda")
+        same = all(torch.equal(matvec.kernel_matmul(Xa, Vs, sigma,
+                                                    fast_accum=f),
+                               matvec.kernel_matmul_cross(Xa, Xa, Vs, sigma,
+                                                          fast_accum=f))
+                   for f in (False, True))
+        ok &= same
+        print(f"cross ({na},{nb},P={p},m={m}): " + "; ".join(cells)
+              + f"; plain f32 {t_p:.3f} ms; kernel_matmul(X, V) bit-equal to "
+              f"kernel_matmul_cross(X, X, V): {same}", flush=True)
+        del Xa, Xb, V, Vs, ref64, ref, ref_f
+    return ok
 
 
 def ms(fn, reps: int) -> float:
@@ -86,6 +153,17 @@ def main() -> int:
     def kernel(X, V, sigma, mode, nt=0):
         return matvec._kernel_matmul_cuda(X, V, sigma, None, None, False,
                                           None, n_tiles=nt, mode=mode)
+
+    if "--cross" in args:
+        shapes = CROSS_SHAPES
+        if "--shapes" in args:
+            shapes = [tuple(int(v) for v in a.split(","))
+                      for a in args[args.index("--shapes") + 1:]
+                      if not a.startswith("--")]
+        _build.library()
+        print(f"nvcc {_build.last_build_seconds:.1f} s")
+        print_ptxas(_build.last_build_log)
+        return 0 if cross(gen, shapes, reps) else 1
 
     if "--ablate" in args:
         data = []

@@ -17,9 +17,11 @@ checksum, so a torn write is detected and the checkpoint recomputed) when
 it is built, else ``.npy``. Crash safety: the meta file is unlinked first,
 the arrays written, and the meta written last by temp file and rename.
 
-A mesh fit's eigenvectors may be sharded (``parallel/sharded.py``): they
-are gathered first (across processes, a collective every process takes
-part in), and then only process 0 writes.
+A mesh fit's eigenvectors and coefficients are row-sharded
+(``parallel/sharded.py``): they are fetched to the host of process 0
+shard by shard (across processes, a collective every process takes part
+in), so no device holds them whole, and only process 0 writes. A mesh fit
+resumes by laying the loaded vectors out over its mesh again.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 from .native import matstore
-from .parallel.sharded import ShardedTensor, _rank, host_gather
+from .parallel.sharded import (ShardedTensor, host_gather,
+                               process_zero_writes)
 from .types import Eigensystem
 
 # what a damaged or half-written checkpoint can raise on load; the answer
@@ -41,18 +44,15 @@ from .types import Eigensystem
 _CORRUPT = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
 
 
-def _host64(a) -> np.ndarray:
+def _host64(a, dst: Optional[int] = None) -> Optional[np.ndarray]:
+    """``a`` as host float64; a sharded tensor fetched shard by shard, to
+    every process or only to process ``dst`` (None elsewhere)."""
     if isinstance(a, ShardedTensor):
-        a = host_gather(a)
+        a = host_gather(a, label="checkpoint", dst=dst)
+        return None if a is None else a.astype(np.float64)
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().double().numpy()
     return np.asarray(a, dtype=np.float64)
-
-
-def _writer() -> bool:
-    """True in the process that writes checkpoints: process 0, or the only
-    one."""
-    return _rank() == 0
 
 
 def _dtype_name(dtype) -> str:
@@ -118,21 +118,22 @@ def _write_meta(meta_p: str, meta: dict) -> None:
 
 
 def save_eig(ckpt_dir: str, fp: str, eig: Eigensystem) -> None:
-    vecs = _host64(eig.vectors)        # the gather comes before the guard
+    vecs = _host64(eig.vectors, dst=0)  # the fetch comes before the guard
     values = _host64(eig.values_full)
-    if not _writer():
-        return
-    os.makedirs(ckpt_dir, exist_ok=True)
-    meta_p, vals_p, vecs_bin, vecs_npy = _paths(ckpt_dir)
-    # invalidate first: a crash after the new arrays but before the new
-    # meta must not leave an old meta paired with them
-    if os.path.exists(meta_p):
-        os.unlink(meta_p)
-    np.save(vals_p, values)
-    native = _write_vectors(vecs_bin, vecs_npy, vecs)
-    # the meta, written last and atomically, marks a complete checkpoint
-    _write_meta(meta_p, {"fingerprint": fp, "lastkeeper": eig.lastkeeper,
-                         "native": native})
+    with process_zero_writes(eig.vectors) as writer:
+        if not writer:
+            return
+        os.makedirs(ckpt_dir, exist_ok=True)
+        meta_p, vals_p, vecs_bin, vecs_npy = _paths(ckpt_dir)
+        # invalidate first: a crash after the new arrays but before the new
+        # meta must not leave an old meta paired with them
+        if os.path.exists(meta_p):
+            os.unlink(meta_p)
+        np.save(vals_p, values)
+        native = _write_vectors(vecs_bin, vecs_npy, vecs)
+        # the meta, written last and atomically, marks a complete checkpoint
+        _write_meta(meta_p, {"fingerprint": fp, "lastkeeper": eig.lastkeeper,
+                             "native": native})
 
 
 def load_eig(ckpt_dir: str, fp: str, dtype,
@@ -165,30 +166,31 @@ def save_adaptive(ckpt_dir: str, fp: str, out, sol_fp: Optional[str] = None,
     completed-spectrum λ bounds and the tail quadrature (the only record
     of the uncomputed tail), and, with ``sol_fp``/``lam``/``Le``/
     ``coeffs``, the solution keyed by the (y, tol) fingerprint."""
-    vecs = _host64(out.eig.vectors)    # the gather comes before the guard
+    vecs = _host64(out.eig.vectors, dst=0)  # fetch before the guard
     values = _host64(out.eig.values_full)
-    coeffs = None if coeffs is None else _host64(coeffs)
-    if not _writer():
-        return
-    os.makedirs(ckpt_dir, exist_ok=True)
-    meta_p, vals_p, vecs_bin, vecs_npy = _adaptive_paths(ckpt_dir)
-    if os.path.exists(meta_p):          # invalidate first, as in save_eig
-        os.unlink(meta_p)
-    arrays = dict(
-        values=values,
-        tail_theta=np.asarray(out.tail_theta, dtype=np.float64),
-        tail_w=np.asarray(out.tail_w, dtype=np.float64))
-    if coeffs is not None:
-        arrays["coeffs"] = coeffs
-    np.savez(vals_p, **arrays)
-    native = _write_vectors(vecs_bin, vecs_npy, vecs)
-    meta = {"fingerprint": fp, "lastkeeper": out.eig.lastkeeper,
-            "k": out.k, "L": out.L, "U": out.U, "native": native}
-    if sol_fp is not None and lam is not None:
-        meta["sol_fp"] = sol_fp
-        meta["lam"] = float(lam)
-        meta["Le"] = float(Le)
-    _write_meta(meta_p, meta)
+    coeffs_h = None if coeffs is None else _host64(coeffs, dst=0)
+    with process_zero_writes(out.eig.vectors, coeffs) as writer:
+        if not writer:
+            return
+        os.makedirs(ckpt_dir, exist_ok=True)
+        meta_p, vals_p, vecs_bin, vecs_npy = _adaptive_paths(ckpt_dir)
+        if os.path.exists(meta_p):          # invalidate first, as in save_eig
+            os.unlink(meta_p)
+        arrays = dict(
+            values=values,
+            tail_theta=np.asarray(out.tail_theta, dtype=np.float64),
+            tail_w=np.asarray(out.tail_w, dtype=np.float64))
+        if coeffs_h is not None:
+            arrays["coeffs"] = coeffs_h
+        np.savez(vals_p, **arrays)
+        native = _write_vectors(vecs_bin, vecs_npy, vecs)
+        meta = {"fingerprint": fp, "lastkeeper": out.eig.lastkeeper,
+                "k": out.k, "L": out.L, "U": out.U, "native": native}
+        if sol_fp is not None and lam is not None:
+            meta["sol_fp"] = sol_fp
+            meta["lam"] = float(lam)
+            meta["Le"] = float(Le)
+        _write_meta(meta_p, meta)
 
 
 def update_adaptive_solution(ckpt_dir: str, fp: str, sol_fp: str,
@@ -198,28 +200,29 @@ def update_adaptive_solution(ckpt_dir: str, fp: str, sol_fp: str,
     Crash-safe order: (1) the meta rewritten without the solution, (2) the
     small npz replaced atomically, (3) the meta with the new solution. A
     crash anywhere loses at most the stored solution, never the prefix."""
-    coeffs = _host64(coeffs)
+    coeffs_h = _host64(coeffs, dst=0)
     meta_p, vals_p, _, _ = _adaptive_paths(ckpt_dir)
-    if not _writer() or not os.path.exists(meta_p):
-        return
-    try:
-        with open(meta_p) as fh:
-            meta = json.load(fh)
-        if meta.get("fingerprint") != fp:
+    with process_zero_writes(coeffs) as writer:
+        if not writer or not os.path.exists(meta_p):
             return
-        with np.load(vals_p) as data:
-            arrays = {k: data[k] for k in data.files if k != "coeffs"}
-    except _CORRUPT:
-        return
-    for key in ("sol_fp", "lam", "Le"):
-        meta.pop(key, None)
-    _write_meta(meta_p, meta)                       # (1)
-    arrays["coeffs"] = coeffs
-    tmp_npz = vals_p + ".tmp.npz"
-    np.savez(tmp_npz, **arrays)
-    os.replace(tmp_npz, vals_p)                     # (2)
-    meta.update({"sol_fp": sol_fp, "lam": float(lam), "Le": float(Le)})
-    _write_meta(meta_p, meta)                       # (3)
+        try:
+            with open(meta_p) as fh:
+                meta = json.load(fh)
+            if meta.get("fingerprint") != fp:
+                return
+            with np.load(vals_p) as data:
+                arrays = {k: data[k] for k in data.files if k != "coeffs"}
+        except _CORRUPT:
+            return
+        for key in ("sol_fp", "lam", "Le"):
+            meta.pop(key, None)
+        _write_meta(meta_p, meta)                       # (1)
+        arrays["coeffs"] = coeffs_h
+        tmp_npz = vals_p + ".tmp.npz"
+        np.savez(tmp_npz, **arrays)
+        os.replace(tmp_npz, vals_p)                     # (2)
+        meta.update({"sol_fp": sol_fp, "lam": float(lam), "Le": float(Le)})
+        _write_meta(meta_p, meta)                       # (3)
 
 
 def load_adaptive(ckpt_dir: str, fp: str, dtype,

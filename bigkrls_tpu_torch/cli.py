@@ -140,8 +140,10 @@ def _fit_kwargs(args):
 def _device_of(model, default: str) -> str:
     """The device of a model's tensors (its kernel or covariance factor)."""
     import torch
+
+    from .parallel.sharded import ShardedTensor
     for t in (model.K, getattr(model.vcov_c_factored, "Q", None)):
-        if isinstance(t, torch.Tensor):
+        if isinstance(t, (torch.Tensor, ShardedTensor)):
             return str(t.device)
     return default
 

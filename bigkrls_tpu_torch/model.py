@@ -37,7 +37,8 @@ from .ops.fused import postkernel_device
 from .ops.kernels import kernel_matrix
 from .ops.solve import solve_for_c
 from .ops.stats import neffective_acf, neffective_spectral, standardize
-from .parallel.sharded import (Mesh, commit, dense, place, shard_fit_arrays,
+from .parallel.sharded import (Mesh, ShardedTensor, host_gather, place,
+                               rows_map, rows_reduce, shard_fit_arrays,
                                shard_info, sharded_gauss_kernel)
 from .routing import select_route
 from .types import Eigensystem, FactoredCovariance, KRLSModel
@@ -56,7 +57,8 @@ def _as_2d(X) -> np.ndarray:
 
 
 def _to_numpy(t) -> np.ndarray:
-    return t.detach().cpu().double().numpy()
+    """A tensor, or a sharded one fetched shard by shard, as host f64."""
+    return host_gather(t).astype(np.float64)
 
 
 def _validate(X: np.ndarray, y: np.ndarray) -> None:
@@ -211,22 +213,39 @@ def _fit_impl(
     y_init_mean = float(y_mean)
     x_init_sds = _to_numpy(x_sds)
 
-    # ---- mesh placement: on a dense route X is row-sharded over "i" and K
-    # block-sharded over ("i", "j"); on the streaming route the same shards
-    # form a ring over which X and V rotate, one K2 cross launch a step.
-    # The O(N·k) work after the eigensolver runs on the mesh's first shard
-    # on gathered operands; ``sharding_report`` records the layouts.
-    ring = X_sh = None
+    if checkpoint_dir is not None:
+        # keyed by the whole standardized inputs, before any placement
+        ckpt_fp = ckpt.fingerprint(X_std, sigma, neig, eigtrunc, dtype)
+        sol_fp = ckpt.solution_fingerprint(y_std, tol)
+
+    # ---- mesh placement: on a dense route X and y are row-sharded over
+    # "i" and K block-sharded over ("i", "j"); on the streaming route the
+    # same shards form a ring over which X and V rotate, one K2 cross
+    # launch a step. Every N-row object after them (the Krylov basis, Q,
+    # c, ŷ, the derivatives) stays row-sharded alike, and only k-vectors,
+    # k×k blocks and scalars cross shards; on a ring that N does not divide
+    # X, y and the basis stay whole (the JAX rule; the ring still splits
+    # every product). ``sharding_report`` records the layouts.
+    ring = at_rest = None
     if mesh is not None:
         if streaming:
             from .parallel.ring_kernel import make_ring_matmul, ring_mesh_of
             ring = ring_mesh_of(mesh)
-        # the N-row objects at rest: row-sharded, or gathered on a ring that
-        # N does not divide (the ring still splits every product)
         at_rest = ring or mesh
-        rows = "row" if ring is None or n % ring.size == 0 else "replicated"
-        X_sh = (place(X_std, ring, rows) if ring is not None
-                else shard_fit_arrays(mesh, X_std, y_std)[0])
+        if ring is None or n % ring.size == 0:
+            X_std, y_std = shard_fit_arrays(at_rest, X_std, y_std)
+
+    def laid_out(e: Eigensystem) -> Eigensystem:
+        """A loaded eigensystem on the fit's device, its vectors laid out
+        as the fit's N-row objects are."""
+        if mesh is None:
+            return e
+        vecs = (place(e.vectors, at_rest, "row")
+                if isinstance(X_std, ShardedTensor) else e.vectors.to(device))
+        return Eigensystem(values_full=e.values_full.to(device),
+                           vectors=vecs, lastkeeper=e.lastkeeper)
+
+    load_device = device if mesh is None else "cpu"
     if ring is not None:
         product = make_ring_matmul(ring, kernel_impl)
     else:
@@ -244,7 +263,7 @@ def _fit_impl(
         if noisy:
             log(f"Step 1/5: Kernel (t+{time.time() - t0:.1f}s)")
         if mesh is not None:
-            K = sharded_gauss_kernel(mesh, kernel_impl)(X_sh, sigma)
+            K = sharded_gauss_kernel(mesh, kernel_impl)(X_std, sigma)
         else:
             K = kernel_matrix(X_std, sigma, kernel_impl)
     timer.mark("kernel")
@@ -264,17 +283,21 @@ def _fit_impl(
     route = select_route(**route_kwargs)
     adaptive_attempted = False
     if checkpoint_dir is not None:
-        ckpt_fp = ckpt.fingerprint(X_std, sigma, neig, eigtrunc, dtype)
         if route.route == "adaptive":
             # the head pairs, completed bounds and tail quadrature, plus
             # the solution under a (y, tol) fingerprint: an identical refit
             # resumes bit-exact, a changed y/tol re-runs golden + solve
-            sol_fp = ckpt.solution_fingerprint(y_std, tol)
             loaded = ckpt.load_adaptive(checkpoint_dir, ckpt_fp, dtype,
-                                        sol_fp, device=device)
+                                        sol_fp, device=load_device)
             if loaded is not None:
                 adaptive_out, sol = loaded
+                adaptive_out.eig = laid_out(adaptive_out.eig)
                 eig = adaptive_out.eig
+                if sol is not None and mesh is not None:
+                    sol = (sol[0], sol[1],
+                           place(sol[2], at_rest, "row")
+                           if isinstance(X_std, ShardedTensor)
+                           else sol[2].to(device))
                 eig_path = "checkpoint"
                 if noisy:
                     log(f"Steps 2-4: adaptive truncation (resumed from "
@@ -290,8 +313,9 @@ def _fit_impl(
                         Le=fused_out[1], coeffs=fused_out[2])
         if eig is None:
             eig = ckpt.load_eig(checkpoint_dir, ckpt_fp, dtype,
-                                device=device)
+                                device=load_device)
             if eig is not None:
+                eig = laid_out(eig)
                 eig_path = "checkpoint"
                 if noisy:
                     log(f"Step 2/5: Spectral decomposition (resumed from "
@@ -310,8 +334,7 @@ def _fit_impl(
             fused_out = (lam_a, Le_a, coeffs_a)
             if checkpoint_dir is not None:
                 ckpt.save_adaptive(
-                    checkpoint_dir, ckpt_fp, adaptive_out,
-                    sol_fp=ckpt.solution_fingerprint(y_std, tol),
+                    checkpoint_dir, ckpt_fp, adaptive_out, sol_fp=sol_fp,
                     lam=lam_a, Le=Le_a, coeffs=coeffs_a)
             if noisy:
                 log(f"Lambda: {lam_a:.6g} (t+{time.time() - t0:.1f}s)")
@@ -359,14 +382,6 @@ def _fit_impl(
             eig_path = f"stepwise:{eig_method}"
         if checkpoint_dir is not None:
             ckpt.save_eig(checkpoint_dir, ckpt_fp, eig)
-    q_layout = None
-    if mesh is not None:
-        # the eigenbasis at rest is row-sharded over "i" (a resumed one is
-        # laid out so); the steps after this use it gathered
-        q_layout = commit(eig.vectors, at_rest, rows)
-        eig = Eigensystem(values_full=eig.values_full,
-                          vectors=dense(eig.vectors),
-                          lastkeeper=eig.lastkeeper)
     timer.mark("eigendecomposition")
 
     # ---- step 3: λ search ----
@@ -402,8 +417,8 @@ def _fit_impl(
         Le, coeffs = solve_for_c(eig, y_std, lambda_)
 
     def residual_variance(yhat_std):
-        resid = y_std - yhat_std
-        return float(torch.sum(resid * resid)) / n   # ref :294
+        return float(rows_reduce(lambda a, b: torch.sum((a - b) * (a - b)),
+                                 y_std, yhat_std)) / n   # ref :294
 
     # On the kernel-free route every product pays a full rebuild of K, and
     # the derivatives' stacked right-hand side already carries c as its
@@ -413,9 +428,11 @@ def _fit_impl(
     yfitted_std = sigmasq = spectrum = None
     if not yhat_from_derivatives:
         if streaming:
-            yfitted_std = km(X_std, coeffs[:, None].contiguous(), sigma)[:, 0]
+            yfitted_std = rows_map(lambda t: t[:, 0], km(
+                X_std, rows_map(lambda c: c[:, None].contiguous(), coeffs),
+                sigma))
         else:
-            yfitted_std = dense(K @ coeffs)
+            yfitted_std = K @ coeffs
         sigmasq = residual_variance(yfitted_std)
         if vcov_est:
             if adaptive_spec is not None:
@@ -432,10 +449,10 @@ def _fit_impl(
             log(f"Step 5/5: Marginal effects (t+{time.time() - t0:.1f}s)")
         cols = (which_derivatives if which_derivatives is not None
                 else list(range(p)))
-        X_est = X_std[:, cols]
+        X_est = rows_map(lambda x: x[:, cols], X_std)
         bmask = torch.as_tensor(x_is_binary[cols], device=device)
-        z0 = torch.amin(X_est, dim=0)
-        z1 = torch.amax(X_est, dim=0)
+        z0 = rows_reduce(lambda x: torch.amin(x, dim=0), X_est, op="min")
+        z1 = rows_reduce(lambda x: torch.amax(x, dim=0), X_est, op="max")
         if yhat_from_derivatives:
             # the AME variances come back under the unscaled filter
             # 1/(λ+λ*)², since σ̂² needs this product's ŷ; it is applied after
@@ -483,19 +500,16 @@ def _fit_impl(
 
     sharding_report = None
     if mesh is not None:
-        # each heavy object's layout at rest, in the JAX keys; "devices"
-        # counts distinct shards
-        sharding_report = {"Q": shard_info(q_layout),
-                           "yfitted": shard_info(commit(yfitted_std, at_rest,
-                                                        rows)),
-                           "X_std": shard_info(X_sh)}
+        # each heavy object's layout as the work ran on it, in the JAX
+        # keys; "devices" counts distinct shards
+        sharding_report = {"Q": shard_info(eig.vectors, mesh),
+                           "yfitted": shard_info(yfitted_std, mesh),
+                           "X_std": shard_info(X_std, mesh)}
         if K is not None:
-            sharding_report["K"] = shard_info(K)
+            sharding_report["K"] = shard_info(K, mesh)
         if derivative:
-            sharding_report["derivatives"] = shard_info(
-                commit(dres.derivatives, at_rest, rows))
-        # the model keeps one gathered kernel, as a single-device fit does
-        K = dense(K)
+            sharding_report["derivatives"] = shard_info(dres.derivatives,
+                                                        mesh)
 
     yfitted = _to_numpy(yfitted_std) * y_init_sd + y_init_mean
     R2 = float(1.0 - np.var(y_np - yfitted, ddof=1) / y_init_sd ** 2)
@@ -568,15 +582,19 @@ def fit(y, X, *, precision: str = "highest",
     products included); the rank-P distance part of both kernels stays
     IEEE fp32. On the CPU and at float64 the setting changes nothing.
 
-    ``mesh`` (``parallel/sharded.make_mesh``; its shards may repeat one
-    device) runs the fit over a mesh: on a dense route X is row-sharded,
-    K block-sharded with one K1 launch per block, and every product with K
-    a block product; on the streaming route the shards form a ring and
-    each product is D² launches of K2's cross entry. ``device`` is then
-    the mesh's first shard. ``model.sharding_report`` records each heavy
-    object's layout (the JAX keys); the model itself holds the gathered
-    kernel and eigenbasis, so ``summary``, ``predict``, ``save_model``
-    and ``crossvalidate`` treat it as a single-device model.
+    ``mesh`` (``parallel/sharded.make_mesh``, or ``parallel/distributed.
+    global_mesh`` across processes; its shards may repeat one device) runs
+    the fit over a mesh: on a dense route K is block-sharded with one K1
+    launch per block and every product with K a block product; on the
+    streaming route the shards form a ring and each product is D² launches
+    of K2's cross entry. X, y, the Krylov basis, Q, c, ŷ and the
+    derivatives stay row-sharded throughout, and only k-vectors, k×k
+    blocks and scalars cross shards, until the model's numpy fields are
+    fetched at the end. ``device`` is then the mesh's first shard.
+    ``model.sharding_report`` records each heavy object's layout (the JAX
+    keys); the model keeps K block-sharded and the covariance's Q
+    row-sharded, which ``summary``, ``predict``, ``save_model`` and
+    ``crossvalidate`` take as they are.
 
     ``checkpoint_dir`` stores the eigendecomposition there and resumes
     from it on a later fit with the same standardized X and eig

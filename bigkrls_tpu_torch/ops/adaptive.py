@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ..parallel.sharded import (ShardedTensor, block_product, commit,
-                                dense, inner, map_blocks, trace)
+                                fetch_region, fetch_rows, inner, map_blocks,
+                                mesh_of, replicate, rows_map, trace)
 from ..types import Eigensystem
 from .eig import (_NAN_EIG_MSG, _krylov_geometry, _subspace_iteration,
                   lastkeeper_from_values)
@@ -217,18 +218,30 @@ def _deflated_moments(K, vals, vecs):
 
 def _deflated_moments_sharded(K, vals, vecs):
     """:func:`_deflated_moments` on a block-sharded K: block (i, j) of R is
-    K_ij − (Q̂_i Λ̂) Q̂_jᵀ on that block's shard, symmetrized against the
-    transposed region, and R², R³ are block products."""
-    QL = vecs * vals[None, :]
+    K_ij − (Q̂_i Λ̂) Q̂_jᵀ on that block's shard (the row slabs of a
+    row-sharded Q̂ fetched from the shards that hold them), symmetrized
+    against the transposed region (fetched alike), and R², R³ are block
+    products. Only Q̂'s slabs and R's blocks move, never a whole."""
+    QL = rows_map(lambda v, lam: v * lam[None, :], vecs, vals)
+    keys = K.keys()
+    if isinstance(vecs, ShardedTensor):
+        ql = fetch_rows(QL, [(K.owner(k), *K.row_bounds[k[0]])
+                             for k in keys])
+        qc = fetch_rows(vecs, [(K.owner(k), *K.col_bounds[k[1]])
+                               for k in keys])
+    else:
+        ql = {r: QL[r[0]:r[1]] for r in K.row_bounds}
+        qc = {c: vecs[c[0]:c[1]] for c in K.col_bounds}
 
     def deflate(i, j, blk, rows, cols):
-        return blk - (QL[rows[0]:rows[1]].to(blk.device)
-                      @ vecs[cols[0]:cols[1]].to(blk.device).T)
+        return blk - (ql[rows].to(blk.device) @ qc[cols].to(blk.device).T)
 
     R0 = map_blocks(K, deflate)
+    tr = fetch_region(R0, [(R0.owner(k), c0, c1, r0, r1)
+                           for k in keys
+                           for r0, r1, c0, c1 in [R0.key_bounds(k)]])
     R = map_blocks(R0, lambda i, j, blk, rows, cols: 0.5 * (
-        blk + R0.region(cols[0], cols[1], rows[0], rows[1],
-                        device=blk.device).T))
+        blk + tr[(cols[0], cols[1], rows[0], rows[1])].to(blk.device).T))
     R2 = block_product(R, R)
     R3 = block_product(R2, R)
     return torch.stack([trace(R), inner(R, R), trace(R3), inner(R2, R2),
@@ -242,7 +255,10 @@ def _krylov_moments(K, k: int, iters: int, extra: Optional[int] = None,
     the (n, q) start block of ``_subspace_iteration``."""
     vals, vecs = _subspace_iteration(K, k, iters, extra, start=start,
                                      seed=seed)
-    return vals, -vecs, _deflated_moments(K, vals, vecs)
+    moments = _deflated_moments(K, vals, vecs)
+    # the host's capture and bound checks read these on every process
+    vals, moments = replicate(mesh_of(K, vecs), vals, moments)
+    return vals, rows_map(torch.neg, vecs), moments
 
 def _hankel(ms, npts: int, offset: int):
     idx = torch.arange(npts, device=ms.device)
@@ -378,9 +394,11 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
     exact ones.
 
     ``mesh``: K is block-sharded over it (``parallel/sharded.py``); the
-    Krylov products and the deflated moments are block products, the
-    small Ritz and quadrature steps run on the mesh's first shard, and the
-    eigenbasis comes back row-sharded over axis "i"."""
+    Krylov basis is row-sharded over axis "i", its products and the
+    deflated moments are block products, the small Ritz and quadrature
+    steps run on the mesh's first shard (computed once and broadcast
+    across processes), the golden search reduces one LOO partial per
+    shard, and the eigenbasis and coefficients come back row-sharded."""
     n = int(K.shape[0])
     if K.dtype == torch.float64:
         iters = 5 if iters is None else iters
@@ -428,9 +446,7 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
             f"(lastkeeper={lastkeeper}); tail completed by "
             f"{theta.size}-point moment quadrature for the lambda bounds")
 
-    vectors = vecs[:, :lastkeeper]
-    if mesh is not None:
-        vectors = commit(vectors.contiguous(), mesh, "row")
+    vectors = _head(vecs, lastkeeper, mesh)
     eig = Eigensystem(values_full=vals, vectors=vectors,
                       lastkeeper=lastkeeper)
     out = AdaptiveEig(eig=eig, L=float(L), U=float(U), k=k,
@@ -454,12 +470,21 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
 
 
 def resume_adaptive(out: AdaptiveEig, y_std, tol: float):
-    """Golden search + spectral solve from a stored :class:`AdaptiveEig`;
-    returns ``(lam, Le, coeffs)``."""
-    lam, Le, coeffs, _ = golden_solve(dense(out.eig.vectors),
-                                      out.eig.values, y_std, out.L, out.U,
-                                      tol)
+    """Golden search + spectral solve from a stored :class:`AdaptiveEig`
+    (its vectors a tensor or row-sharded, as ``y_std``); returns ``(lam,
+    Le, coeffs)``."""
+    lam, Le, coeffs, _ = golden_solve(out.eig.vectors, out.eig.values,
+                                      y_std, out.L, out.U, tol)
     return lam, float(Le), coeffs
+
+
+def _head(vecs, lastkeeper: int, mesh):
+    """The first ``lastkeeper`` vectors, row-sharded over ``mesh`` when one
+    is given (they already are, for a block-sharded K)."""
+    if mesh is None:
+        return vecs[:, :lastkeeper]
+    return commit(rows_map(lambda v: v[:, :lastkeeper].contiguous(), vecs),
+                  mesh, "row")
 
 
 def adaptive_eigensystem(
@@ -530,10 +555,8 @@ def adaptive_eigensystem(
         log(f"  adaptive eig: computed {k} of {n} eigenpairs "
             f"(lastkeeper={lastkeeper}); tail completed by "
             f"{theta.size}-point moment quadrature for the lambda bounds")
-    vectors = vecs[:, :lastkeeper]
-    if mesh is not None:
-        vectors = commit(vectors.contiguous(), mesh, "row")
-    eig = Eigensystem(values_full=vals, vectors=vectors,
+    eig = Eigensystem(values_full=vals,
+                      vectors=_head(vecs, lastkeeper, mesh),
                       lastkeeper=lastkeeper)
     return AdaptiveEig(eig=eig, L=float(L), U=float(U), k=k,
                        tail_theta=theta, tail_w=w)

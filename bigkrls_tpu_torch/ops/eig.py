@@ -28,7 +28,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..parallel.sharded import commit, dense, matmul_dense
+from ..parallel.sharded import (ShardedTensor, collect, commit, dense, gram,
+                                mesh_of, place, replicate, rows_map,
+                                rows_reduce)
 from ..types import Eigensystem
 from . import matvec
 
@@ -56,34 +58,63 @@ def start_block(n: int, q: int, dtype, device, seed: int = 0):
 
 
 def _dgks(B, W):
-    """Block Gram–Schmidt of W against B's orthonormal columns, twice."""
+    """Block Gram–Schmidt of W against B's orthonormal columns, twice. On
+    row shards: the Gram BᵀW is reduced over them, the update is local."""
     for _ in range(2):
-        W = W - B @ (B.T @ W)
+        W = rows_map(lambda b, w, g: w - b @ g, B, W, gram(B, W))
     return W
 
 
+def _tsqr(W):
+    """Householder QR of a row-sharded block by TSQR: each shard's QR, a
+    replicated QR of the stacked R factors (k×k blocks, computed once and
+    broadcast), and each shard's Q times its rows of the second Q. Only
+    the R factors cross shards."""
+    n, w = W.shape
+    facs = [None if t is None else torch.linalg.qr(t, mode="reduced")
+            for t in W.shards]
+    shapes = [(min(r1 - r0, w), w) for r0, r1 in W.row_bounds]
+    Rs = collect(W, [None if f is None else f[1] for f in facs], shapes,
+                 label="eig: TSQR of a basis of N rows or more")
+    (Q2,) = replicate(W.mesh, torch.linalg.qr(torch.cat(Rs),
+                                              mode="reduced")[0])
+    offs = np.concatenate([[0], np.cumsum([s[0] for s in shapes])])
+    shards = [None if f is None else
+              f[0] @ Q2[offs[i]:offs[i + 1]].to(f[0].device)
+              for i, f in enumerate(facs)]
+    return ShardedTensor(W.mesh, "row", (n, Q2.shape[1]), shards, W.dtype)
+
+
 def _householder_q(W):
+    if isinstance(W, ShardedTensor):
+        return _tsqr(W)
     return torch.linalg.qr(W, mode="reduced")[0]
 
 
 def _block_orth(W):
-    """Orthonormalize the columns of a tall block W.
+    """Orthonormalize the columns of a tall block W (a tensor, or
+    row-sharded).
 
-    Householder QR at f64 or below ``CHOLQR_MIN_ROWS`` rows; CholeskyQR²
-    above, with its orthonormality checked (‖I − QᵀQ‖_max < 1e-5, finite
-    factors) and Householder QR taken when the check fails — a host read
-    of one flag where the JAX program used ``lax.cond``."""
+    Householder QR at f64 or below ``CHOLQR_MIN_ROWS`` rows (TSQR on row
+    shards); CholeskyQR² above, with its orthonormality checked
+    (‖I − QᵀQ‖_max < 1e-5, finite factors) and Householder QR taken when
+    the check fails — a host read of one flag where the JAX program used
+    ``lax.cond``. On row shards the Grams are reduced over them and the
+    Cholesky factors computed once and broadcast, so every process reads
+    the same flag."""
     if W.dtype == torch.float64 or W.shape[0] < CHOLQR_MIN_ROWS:
         return _householder_q(W)
+    mesh = mesh_of(W)
 
     def chol_pass(w):
-        L, info = torch.linalg.cholesky_ex(w.T @ w)
-        q = torch.linalg.solve_triangular(L, w.T, upper=False).T
+        L, info = replicate(mesh, *torch.linalg.cholesky_ex(gram(w, w)))
+        q = rows_map(lambda a, l: torch.linalg.solve_triangular(
+            l, a.T, upper=False).T, w, L)
         return q, L, info
 
     Q1, L1, i1 = chol_pass(W)
     Q2, L2, i2 = chol_pass(Q1)
-    G2 = Q2.T @ Q2
+    G2 = gram(Q2, Q2)
     orth_err = torch.max(torch.abs(G2 - torch.eye(G2.shape[0], dtype=G2.dtype,
                                                   device=G2.device)))
     ok = ((i1 == 0) & (i2 == 0) & torch.isfinite(L1).all()
@@ -93,11 +124,14 @@ def _block_orth(W):
 
 
 def _ritz_topk(B, KB, k: int):
-    """Rayleigh–Ritz on an orthonormal basis: T = BᵀKB, top-k."""
-    T = B.T @ KB
+    """Rayleigh–Ritz on an orthonormal basis: T = BᵀKB, top-k. On row
+    shards T is reduced over them and its ``eigh`` computed once and
+    broadcast; the Ritz vectors stay on the shards."""
+    T = gram(B, KB)
     T = 0.5 * (T + T.T)
-    evals, S = torch.linalg.eigh(T)          # ascending
-    return evals.flip(0)[:k], B @ S.flip(1)[:, :k]
+    evals, S = replicate(mesh_of(B), *torch.linalg.eigh(T))   # ascending
+    return evals.flip(0)[:k], rows_map(lambda b, s: b @ s, B,
+                                       S.flip(1)[:, :k])
 
 
 def _krylov_geometry(n: int, k: int, iters: int,
@@ -120,6 +154,10 @@ def _subspace_iteration(K, k: int, iters: int, extra: Optional[int] = None,
     block DGKS) and each K@V_g is reused as a block of K·B. Small n
     (width ≥ n): stacked blocks reduced by one fat QR.
 
+    For a block-sharded K the basis is row-sharded over the mesh's axis
+    "i" (the start block placed so) and every K@V a block product; the
+    returned vectors are row-sharded.
+
     ``start`` is the (n, q) start block (q from ``_krylov_geometry``);
     by default :func:`start_block` with ``seed``. Returns (values,
     vectors), descending, vectors not negated."""
@@ -130,58 +168,87 @@ def _subspace_iteration(K, k: int, iters: int, extra: Optional[int] = None,
     if tuple(start.shape) != (n, q):
         raise ValueError(f"start block must be ({n}, {q}), got "
                          f"{tuple(start.shape)}")
-    V = _block_orth(start.to(dtype=K.dtype, device=K.device))
+    V = start.to(dtype=K.dtype, device=K.device)
+    if isinstance(K, ShardedTensor):
+        V = place(V, K.mesh, "row")
+    V = _block_orth(V)
 
     if progressive:
         width = (iters + 1) * q
-        B = torch.zeros((n, width), dtype=K.dtype, device=K.device)
-        B[:, :q] = V
+        B = rows_map(lambda v: v.new_zeros((v.shape[0], width)), V)
+        _put(B, 0, V)
         KBs = []
         for g in range(iters):
-            W = matmul_dense(K, V)    # K @ V_g — reused as KB block g
+            W = K @ V                 # K @ V_g — reused as KB block g
             KBs.append(W)
             W = _dgks(B, W)
             V = _block_orth(W)
-            B[:, (g + 1) * q:(g + 2) * q] = V
-        KBs.append(matmul_dense(K, V))
-        return _ritz_topk(B, torch.cat(KBs, dim=1), k)
+            _put(B, (g + 1) * q, V)
+        KBs.append(K @ V)
+        return _ritz_topk(B, _hcat(KBs), k)
 
     blocks = [V]
     for _ in range(iters):
-        blocks.append(_block_orth(matmul_dense(K, blocks[-1])))
-    Q = _householder_q(torch.cat(blocks, dim=1))
-    return _ritz_topk(Q, matmul_dense(K, Q), k)
+        blocks.append(_block_orth(K @ blocks[-1]))
+    Q = _householder_q(_hcat(blocks))
+    return _ritz_topk(Q, K @ Q, k)
+
+
+def _put(B, col: int, V):
+    """``B[:, col:col + V.shape[1]] = V``, shard by shard on row shards."""
+    rows_map(lambda b, v: b[:, col:col + v.shape[1]].copy_(v), B, V)
+
+
+def _hcat(blocks):
+    """The blocks side by side (``torch.cat(blocks, dim=1)``)."""
+    return rows_map(lambda *bs: torch.cat(bs, dim=1), *blocks)
+
+
+def _neg(V):
+    return rows_map(torch.neg, V)
 
 
 def _lanczos(K, k: int, start=None, seed: int = 0):
     """Lanczos with full reorthogonalization, m = min(N, 2k+32) steps.
-    ``start`` is the (n,) start vector; by default a seeded normal draw."""
+    ``start`` is the (n,) start vector; by default a seeded normal draw.
+    The Lanczos vectors are the columns of an (n, m) basis, row-sharded
+    for a block-sharded K (dot products and the reorthogonalization's
+    Grams then reduced over the shards)."""
     n = K.shape[0]
     m = min(n, 2 * k + 32)
     if start is None:
         start = start_block(n, 1, K.dtype, K.device, seed)[:, 0]
     v0 = start.to(dtype=K.dtype, device=K.device)
-    V = torch.zeros((m, n), dtype=K.dtype, device=K.device)
-    V[0] = v0 / torch.linalg.norm(v0)
+    if isinstance(K, ShardedTensor):
+        v0 = place(v0, K.mesh, "row")
+    Vt = rows_map(lambda v: v.new_zeros((v.shape[0], m)), v0)
+    rows_map(lambda b, v, nrm: b[:, 0].copy_(v / nrm), Vt, v0, _norm(v0))
     alphas = torch.zeros((m,), dtype=K.dtype, device=K.device)
     betas = torch.zeros((m,), dtype=K.dtype, device=K.device)
     tiny = torch.finfo(K.dtype).tiny
     for i in range(m):
-        v = V[i]
-        w = matmul_dense(K, v)
-        alpha = torch.dot(v, w)
-        w = w - alpha * v
-        w = w - V.T @ (V @ w)
-        w = w - V.T @ (V @ w)
-        beta = torch.linalg.norm(w)
+        v = rows_map(lambda b: b[:, i], Vt)
+        w = K @ v
+        alpha = gram(v, w)
+        w = rows_map(lambda a, b, al: a - al * b, w, v, alpha)
+        for _ in range(2):
+            w = rows_map(lambda a, b, g: a - b @ g, w, Vt, gram(Vt, w))
+        beta = _norm(w)
         if i + 1 < m:
-            V[i + 1] = w / torch.clamp_min(beta, tiny)
+            rows_map(lambda b, a, be: b[:, i + 1].copy_(
+                a / torch.clamp_min(be, tiny)), Vt, w, beta)
         alphas[i] = alpha
         betas[i] = beta
     T = (torch.diag(alphas) + torch.diag(betas[:-1], 1)
          + torch.diag(betas[:-1], -1))
-    evals, S = torch.linalg.eigh(T)
-    return evals.flip(0)[:k], V.T @ S.flip(1)[:, :k]
+    evals, S = replicate(mesh_of(Vt), *torch.linalg.eigh(T))
+    return evals.flip(0)[:k], rows_map(lambda b, s: b @ s, Vt,
+                                       S.flip(1)[:, :k])
+
+
+def _norm(v):
+    """‖v‖₂ of a vector, reduced over row shards."""
+    return torch.sqrt(rows_reduce(lambda a: torch.dot(a, a), v))
 
 
 def lastkeeper_from_values(values: np.ndarray, eigtrunc: float) -> int:
@@ -227,7 +294,10 @@ def eigensystem(K, neig: Optional[int] = None, eigtrunc: float = 0.0,
     first shard while :func:`_replicated_eigh_fits`, else block Jacobi
     (``parallel/jacobi.py``). A Jacobi run that does not converge falls
     back to a gathered ``eigh`` and logs a warning, as in the JAX package.
-    The eigenvectors come back row-sharded over the mesh's axis "i"."""
+    The iterative solvers keep their bases row-sharded over the mesh's
+    axis "i"; the gathered ``eigh`` and block Jacobi gather K, as the JAX
+    package replicates them. The eigenvectors come back row-sharded over
+    axis "i"."""
     n = K.shape[0]
     neig = n if neig is None else min(n, int(neig))
     if method == "auto":
@@ -251,7 +321,7 @@ def eigensystem(K, neig: Optional[int] = None, eigtrunc: float = 0.0,
             method = "full"
 
     if method == "full":
-        vals, vecs = _eigh_desc(dense(K))
+        vals, vecs = _eigh_desc(dense(K, label="eig: replicated eigh"))
         vals, vecs = vals[:neig], vecs[:, :neig]
     elif method == "jacobi":
         from ..parallel.jacobi import block_jacobi_eigh
@@ -260,16 +330,17 @@ def eigensystem(K, neig: Optional[int] = None, eigtrunc: float = 0.0,
         except RuntimeError as e:
             _LOG.warning("block Jacobi fell back to gathered dense eigh: %s",
                          e)
-            vals, vecs = torch.linalg.eigh(dense(K))
+            vals, vecs = torch.linalg.eigh(
+                dense(K, label="eig: eigh after block Jacobi failed"))
         vals = vals.flip(0)[:neig]
         vecs = -vecs.flip(1)[:, :neig]
     elif method == "subspace":
         vals, vecs = _subspace_iteration(K, neig, subspace_iters,
                                          start=start, seed=seed)
-        vecs = -vecs
+        vecs = _neg(vecs)
     elif method == "lanczos":
         vals, vecs = _lanczos(K, neig, start=start, seed=seed)
-        vecs = -vecs
+        vecs = _neg(vecs)
     else:
         raise ValueError(f"unknown eig method: {method!r}")
 
@@ -279,7 +350,7 @@ def eigensystem(K, neig: Optional[int] = None, eigtrunc: float = 0.0,
     lastkeeper = lastkeeper_from_values(vals_np, eigtrunc)
     # row-major, as a checkpoint's vectors load (``eigh`` returns them
     # column-major), so that a resumed fit runs the same products bit for bit
-    vecs = vecs[:, :lastkeeper].contiguous()
+    vecs = rows_map(lambda v: v[:, :lastkeeper].contiguous(), vecs)
     if mesh is not None:
         vecs = commit(vecs, mesh, "row")
     return Eigensystem(values_full=vals, vectors=vecs, lastkeeper=lastkeeper)
@@ -293,7 +364,7 @@ def eigensystem(K, neig: Optional[int] = None, eigtrunc: float = 0.0,
 def _orth(W):
     """``_block_orth`` with a contiguous result (the product kernel takes
     contiguous blocks; QR and triangular solves may return strided ones)."""
-    return _block_orth(W).contiguous()
+    return rows_map(lambda t: t.contiguous(), _block_orth(W))
 
 
 def _cheb_degrees(nprod: int):
@@ -315,8 +386,9 @@ def _cheb_degrees(nprod: int):
 def _block_scale(U):
     """Scalar scale of a recurrence block (max-abs: overflow-proof at f32
     even when the filter has amplified the block by ~1e8). A 0-dim tensor
-    on U's device: no host read."""
-    return torch.clamp_min(torch.max(torch.abs(U)), 1e-30)
+    on U's device (the mesh's first, for row shards): no host read."""
+    return torch.clamp_min(rows_reduce(lambda u: torch.max(torch.abs(u)), U,
+                                       op="max"), 1e-30)
 
 
 def _cheb_app_start(X, V, c_prev: float, sigma, matmul):
@@ -329,14 +401,14 @@ def _cheb_app_start(X, V, c_prev: float, sigma, matmul):
     scale and the cutoff. The cutoff is read to the host (one float per
     application): the product kernel takes its scale as a host number."""
     W = matmul(X, V, sigma)
-    S = V.T @ W
+    S = gram(V, W)
     S = 0.5 * (S + S.T)
-    theta = torch.linalg.eigvalsh(S)             # ascending
+    (theta,) = replicate(mesh_of(V), torch.linalg.eigvalsh(S))  # ascending
     lo, hi = theta[[0, -1]].tolist()
     c = max(max(c_prev, lo), 1e-6 * hi)
-    Y = W.mul(2.0 / c).sub_(V)
+    Y = rows_map(lambda w, v: w.mul(2.0 / c).sub_(v), W, V)
     tau = _block_scale(Y)
-    return V, Y.div_(tau), 1.0 / tau, c
+    return V, rows_map(lambda y, t: y.div_(t), Y, tau), 1.0 / tau, c
 
 
 def _cheb_step(X, Yp, Yc, r, c: float, sigma, matmul):
@@ -347,9 +419,10 @@ def _cheb_step(X, Yp, Yc, r, c: float, sigma, matmul):
     unchanged. The generic form, for any ``matmul(X, V, sigma)`` callable;
     the package's own product takes :func:`_cheb_step_fused`."""
     Z = matmul(X, Yc, sigma)
-    U = (4.0 / c) * Z - 2.0 * Yc - r * Yp
+    U = rows_map(lambda z, yc, yp, r_: (4.0 / c) * z - 2.0 * yc - r_ * yp,
+                 Z, Yc, Yp, r)
     tau = _block_scale(U)
-    return Yc, U / tau, 1.0 / tau
+    return Yc, rows_map(lambda u, t: u / t, U, tau), 1.0 / tau
 
 
 def _cheb_step_fused(X, Yp, Yc, r, c: float, sigma, matmul):
@@ -359,10 +432,11 @@ def _cheb_step_fused(X, Yp, Yc, r, c: float, sigma, matmul):
     ``U`` over it, so no separate Z or U block exists and the step holds
     the two blocks a plain power step holds. ``Yp`` is consumed: the
     caller must not use it afterwards."""
-    init = Yp.mul_(r).add_(Yc, alpha=2.0).mul_(-(c / 4.0))
+    init = rows_map(lambda yp, yc, r_: yp.mul_(r_).add_(yc, alpha=2.0)
+                    .mul_(-(c / 4.0)), Yp, Yc, r)
     U = matmul(X, Yc, sigma, init=init, out_scale=4.0 / c, out=init)
     tau = _block_scale(U)
-    return Yc, U.div_(tau), 1.0 / tau
+    return Yc, rows_map(lambda u, t: u.div_(t), U, tau), 1.0 / tau
 
 
 def _power_chunk_blocks(X, V, sigma, steps: int, matmul):
@@ -373,13 +447,13 @@ def _power_chunk_blocks(X, V, sigma, steps: int, matmul):
     for _ in range(steps):
         V = _orth(matmul(X, V, sigma))
         blocks.append(V)
-    return V, torch.cat(blocks, dim=1)
+    return V, _hcat(blocks)
 
 
 def _fatqr_ritz_streaming(X, B, sigma, k: int, matmul):
     """Rayleigh–Ritz after one fat reduced QR of the stacked blocks; K·Q
     recomputed with the full-precision ``matmul``."""
-    Q = _householder_q(B).contiguous()
+    Q = rows_map(lambda t: t.contiguous(), _householder_q(B))
     return _ritz_topk(Q, matmul(X, Q, sigma), k)
 
 
@@ -395,11 +469,11 @@ def _krylov_chunk(X, V, B, KB, g: int, sigma, steps: int, matmul,
     for _ in range(steps):
         W = matmul(X, V, sigma)                  # K @ V_g
         if store_kb:
-            KB[:, g * q:(g + 1) * q] = W
-        W = _dgks(B[:, :(g + 1) * q], W)
+            _put(KB, g * q, W)
+        W = _dgks(rows_map(lambda b: b[:, :(g + 1) * q], B), W)
         V = _orth(W)
         g += 1
-        B[:, g * q:(g + 1) * q] = V
+        _put(B, g * q, V)
     return V, B, KB, g
 
 
@@ -411,8 +485,7 @@ def _krylov_ritz_streaming(X, B, KB, V_last, sigma, k: int, matmul,
     recomputed with the full-precision ``matmul``, so Ritz quality never
     inherits reduced-precision noise."""
     if reuse_kb:
-        q = V_last.shape[1]
-        KB[:, B.shape[1] - q:] = matmul(X, V_last, sigma)
+        _put(KB, B.shape[1] - V_last.shape[1], matmul(X, V_last, sigma))
     else:
         KB = matmul(X, B, sigma)
     return _ritz_topk(B, KB, k)
@@ -506,9 +579,12 @@ def eigensystem_streaming(
     ``chunk`` products, after the device has finished them.
 
     ``mesh`` (a ring, passed together with its ring ``matmul``,
-    ``parallel/ring_kernel.make_ring_matmul``) row-shards the returned
-    eigenvectors over it when N divides evenly; otherwise they stay
-    gathered, with a warning (the ring still splits every product)."""
+    ``parallel/ring_kernel.make_ring_matmul``): when N divides evenly, X,
+    the start block and every block of the basis are row-sharded over it
+    (the Grams of DGKS, CholeskyQR² and Rayleigh–Ritz reduced over the
+    shards, their factorizations computed once and broadcast), and so are
+    the returned eigenvectors; otherwise they stay gathered, with a
+    warning (the ring still splits every product)."""
     if mesh is not None and X_std.shape[0] % mesh.size:
         _LOG.warning(
             "eigensystem_streaming: N=%d not divisible by %d shards; the "
@@ -516,6 +592,9 @@ def eigensystem_streaming(
             "matmul still row-shards every K@V product internally)",
             X_std.shape[0], mesh.size)
     n = X_std.shape[0]
+    rows = mesh is not None and n % mesh.size == 0
+    if rows:
+        X_std = place(X_std, mesh, "row")
     neig = min(int(neig), n)
     dtype, device = X_std.dtype, X_std.device
     q, progressive = _krylov_geometry(n, neig, iters)
@@ -547,7 +626,10 @@ def eigensystem_streaming(
     if tuple(start.shape) != (n, q):
         raise ValueError(f"start block must be ({n}, {q}), got "
                          f"{tuple(start.shape)}")
-    V = _orth(start.to(dtype=dtype, device=device))
+    V = start.to(dtype=dtype, device=device)
+    if rows:
+        V = place(V, mesh, "row")
+    V = _orth(V)
 
     def report(done, total):
         if progress is not None:
@@ -558,10 +640,12 @@ def eigensystem_streaming(
     if krylov and progressive:
         reuse_kb = power_matmul is matmul
         width = (iters + 1) * q
-        B = torch.zeros((n, width), dtype=dtype, device=device)
-        B[:, :q] = V
-        KB = (torch.zeros((n, width), dtype=dtype, device=device)
-              if reuse_kb else None)
+        def zeros():
+            return rows_map(lambda v: v.new_zeros((v.shape[0], width)), V)
+
+        B = zeros()
+        _put(B, 0, V)
+        KB = zeros() if reuse_kb else None
         g = done = 0
         while done < iters:
             steps = min(chunk, iters - done)
@@ -583,7 +667,7 @@ def eigensystem_streaming(
             done += steps
             report(done, iters)
         vals, vecs = _fatqr_ritz_streaming(
-            X_std, torch.cat(bases, dim=1), sigma, neig, matmul)
+            X_std, _hcat(bases), sigma, neig, matmul)
     else:
         # constant-memory flow: Chebyshev-filtered subspace iteration. The
         # cutoff needs no a-priori spectral bounds: each application
@@ -608,12 +692,13 @@ def eigensystem_streaming(
         # Rayleigh–Ritz on the last block only, K·B at full precision
         vals, vecs = _krylov_ritz_streaming(X_std, V, None, V, sigma, neig,
                                             matmul, False)
-    vecs = -vecs
+    vecs = _neg(vecs)
     vals_np = vals.detach().cpu().numpy()
     if np.any(np.isnan(vals_np)):
         raise ValueError(_NAN_EIG_MSG)
     lastkeeper = lastkeeper_from_values(vals_np, eigtrunc)
-    vecs = vecs[:, :lastkeeper]
-    if mesh is not None and n % mesh.size == 0:
-        vecs = commit(vecs.contiguous(), mesh, "row")
+    if rows:
+        vecs = rows_map(lambda v: v[:, :lastkeeper].contiguous(), vecs)
+    else:
+        vecs = vecs[:, :lastkeeper]
     return Eigensystem(values_full=vals, vectors=vecs, lastkeeper=lastkeeper)

@@ -7,7 +7,11 @@ batch of ridge penalties λ:
     G⁻¹ᵢᵢ    = Σₖ Q²ᵢₖ / (λₖ+λ)
     Le       = Σᵢ (cᵢ/G⁻¹ᵢᵢ)²
 
-with ``Qᵀy`` and ``Q∘Q`` precomputed once.
+with ``Qᵀy`` and ``Q∘Q`` precomputed once. Q may be row-sharded over a
+mesh (``parallel/sharded.py``): Qᵀy is then reduced over its shards once,
+G⁻¹ᵢᵢ and cᵢ stay on their shard, and each LOO loss is the sum of one
+partial per shard, in a fixed order, so that every process of a mesh
+that spans processes compares the same numbers.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel.sharded import (ShardedTensor, gram, mesh_of, place,
+                                replicate, rows_map, rows_reduce)
 from ..types import Eigensystem
 
 GOLD = 0.381966          # R's golden-section constant (bLambdaSearch)
@@ -55,9 +61,18 @@ def golden_section(loo: Callable[[float], float], L: float, U: float,
     return (X1 if S1 < S2 else X2), it
 
 
+def _rows_like(vectors, y_std):
+    """y laid out as the rows of a row-sharded Q (a tensor otherwise)."""
+    if isinstance(vectors, ShardedTensor) and \
+            not isinstance(y_std, ShardedTensor):
+        return place(y_std, vectors.mesh, "row")
+    return y_std
+
+
 def solve_precompute(vectors, y_std):
     """The two reusable objects for batched λ solves: (Qᵀy, Q∘Q)."""
-    return vectors.T @ y_std, vectors * vectors
+    return (gram(vectors, _rows_like(vectors, y_std)),
+            rows_map(lambda q: q * q, vectors))
 
 
 def spectral_solve_batch(vectors, values, Qty, Q2, lambdas):
@@ -65,9 +80,10 @@ def spectral_solve_batch(vectors, values, Qty, Q2, lambdas):
     lambdas = torch.atleast_1d(torch.as_tensor(lambdas, dtype=values.dtype,
                                                device=values.device))
     filt = 1.0 / (values[:, None] + lambdas[None, :])
-    coeffs = vectors @ (Qty[:, None] * filt)
-    ginv_diag = Q2 @ filt
-    loo = torch.sum((coeffs / ginv_diag) ** 2, dim=0)
+    coeffs = rows_map(lambda q, f: q @ f, vectors, Qty[:, None] * filt)
+    ginv_diag = rows_map(lambda q2, f: q2 @ f, Q2, filt)
+    loo = rows_reduce(lambda c, g: torch.sum((c / g) ** 2, dim=0), coeffs,
+                      ginv_diag)
     return coeffs, ginv_diag, loo
 
 
@@ -83,20 +99,26 @@ def golden_solve(vectors, values, y_std, L: float, U: float, tol: float,
     inside ``ops/fused.postkernel_device`` and ``_adaptive_fused``.
     ``mask`` (0/1 per eigenpair) zeroes the filter at k ≥ lastkeeper, the
     JAX programs' truncation without dynamic shapes. Returns ``(lam, Le,
-    coeffs, iters)`` with ``Le`` and ``coeffs`` on the device."""
+    coeffs, iters)`` with ``Le`` and ``coeffs`` on the device (``coeffs``
+    row-sharded like a row-sharded Q). Across processes λ* is process 0's,
+    broadcast."""
     Qty, Q2 = solve_precompute(vectors, y_std)
 
     def loo_c(lam):
         filt = 1.0 / (values + lam)
         if mask is not None:
             filt = mask * filt
-        coeffs = vectors @ (Qty * filt)
-        return torch.sum((coeffs / (Q2 @ filt)) ** 2), coeffs
+        coeffs = rows_map(lambda q, f: q @ f, vectors, Qty * filt)
+        loo = rows_reduce(lambda c, q2, f: torch.sum((c / (q2 @ f)) ** 2),
+                          coeffs, Q2, filt)
+        return loo, coeffs
 
     lam, it = golden_section(lambda x: float(loo_c(x)[0]), L, U, tol,
                              log=log)
-    Le, coeffs = loo_c(lam)
-    return lam, Le, coeffs, it
+    (lam_t,) = replicate(mesh_of(vectors),
+                         torch.tensor([lam], dtype=torch.float64))
+    Le, coeffs = loo_c(float(lam_t[0]))
+    return float(lam_t[0]), Le, coeffs, it
 
 
 def solve_for_c(eig: Eigensystem, y_std, lambda_):
@@ -104,4 +126,4 @@ def solve_for_c(eig: Eigensystem, y_std, lambda_):
     Qty, Q2 = solve_precompute(eig.vectors, y_std)
     coeffs, _, loo = spectral_solve_batch(eig.vectors, eig.values, Qty, Q2,
                                           [float(lambda_)])
-    return loo[0], coeffs[:, 0]
+    return loo[0], rows_map(lambda c: c[:, 0], coeffs)

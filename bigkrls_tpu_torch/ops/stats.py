@@ -11,6 +11,8 @@ import numpy as np
 import scipy.special
 import torch
 
+from ..parallel.sharded import dense
+
 
 def col_sd(X, dim=0):
     """R's sample standard deviation (ddof=1)."""
@@ -56,7 +58,10 @@ def neffective_acf(X_std, block: int = 0,
     Neff = N(1 − 2r/N²) + 1. Above 8192 rows (or with ``block``) the Gram
     is streamed in (N, block) slabs sized to the device's memory, or to
     ``memory_budget`` bytes when it is given (as in the JAX package:
-    it sizes the slab and changes nothing else)."""
+    it sizes the slab and changes nothing else). A row-sharded X_std is
+    read whole (its O(N·P) rows, a gather under the label "acf: X"); the
+    N×N Gram is never held, only its slabs."""
+    X_std = dense(X_std, label="acf: X")
     n = X_std.shape[0]
     if block == 0 and n > 8192:
         if memory_budget is not None:

@@ -3,10 +3,14 @@
 
 One process per host (or per card) joins a process group; a mesh built
 by :func:`global_mesh` then holds every process's shards, each process
-keeping its own (``parallel/sharded.py``). Gathers become collectives and
-the ring's rotation across a process boundary becomes point-to-point
-sends (``parallel/ring_kernel.py``). The backend is gloo for CPU shards
-and NCCL for CUDA ones.
+keeping its own (``parallel/sharded.py``). The ring's rotation across a
+process boundary, and a shard that another process's block needs, travel
+by point-to-point sends (:func:`exchange`); reductions over shards
+all-gather the per-shard partials (:func:`all_partials`) and sum them in
+shard order on every process, and the small results every process uses
+are process 0's, broadcast (:func:`broadcast_from_zero`), so no process
+takes another branch. The backend is gloo for CPU shards and NCCL for
+CUDA ones.
 
 The JAX semantics are kept: with no arguments and no cluster environment
 the call is a no-op (one process); with explicit arguments, a group that
@@ -19,6 +23,7 @@ import logging
 import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 log = logging.getLogger("bigkrls_tpu_torch")
@@ -110,7 +115,6 @@ def global_mesh(shape: Optional[Sequence[int]] = None,
     """A 2-D ("i", "j") mesh over every process's devices, rank by rank.
     ``local_devices`` are this process's (default: every visible CUDA
     device, else one ``cpu``; CPU shards may repeat ``cpu``)."""
-    import numpy as np
     import torch.distributed as dist
 
     from .sharded import Mesh, make_mesh
@@ -148,3 +152,65 @@ def process_info(local_devices: Optional[int] = None) -> dict:
         "local_devices": int(n_local),
         "global_devices": _global_count(int(n_local)),
     }
+
+
+# ---------------------------------------------------------------------------
+# collectives of a mesh that spans processes (``parallel/sharded.py``)
+# ---------------------------------------------------------------------------
+
+def comm_device() -> torch.device:
+    """The device the process group's collectives take: the current CUDA
+    device under NCCL, the CPU under gloo."""
+    import torch.distributed as dist
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def all_partials(partials, owners, shapes, dtype, device):
+    """Every shard's partial result on every process: ``partials[s]`` is
+    this process's tensor for shard ``s`` (None where another process,
+    ``owners[s]``, holds it) of shape ``shapes[s]``. Each process
+    all-gathers the flat concatenation of its own slots (zeros elsewhere)
+    and takes slot ``s`` from its owner's copy, so every process holds the
+    same bits and sums them in the same order."""
+    import torch.distributed as dist
+    comm = comm_device()
+    sizes = [int(np.prod(s)) for s in shapes]
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+    mine = torch.zeros(int(offs[-1]), dtype=dtype, device=comm)
+    for s, p in enumerate(partials):
+        if p is not None:
+            mine[offs[s]:offs[s + 1]] = p.reshape(-1).to(comm)
+    bufs = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(bufs, mine)
+    return [bufs[int(owners[s])][offs[s]:offs[s + 1]].reshape(shapes[s])
+            .to(device) for s in range(len(shapes))]
+
+
+def broadcast_from_zero(tensors):
+    """``tensors`` as process 0 holds them, on every process: the small
+    results a mesh fit computes once and replicates (a Ritz ``eigh``, a
+    Cholesky factor, λ*), so that no process takes another branch."""
+    import torch.distributed as dist
+    comm = comm_device()
+    out = []
+    for t in tensors:
+        buf = t.detach().to(comm).contiguous().clone()
+        dist.broadcast(buf, src=0)
+        out.append(buf.to(t.device))
+    return out
+
+
+def exchange(sends, recvs):
+    """Point-to-point transfers: ``sends`` are (tensor, rank), ``recvs``
+    (buffer, rank), listed in the same global order on every process so
+    that each pair's messages match in turn."""
+    import torch.distributed as dist
+    comm = comm_device()
+    keep = [(t.to(comm).contiguous(), r) for t, r in sends]
+    ops = ([dist.P2POp(dist.isend, t, r) for t, r in keep]
+           + [dist.P2POp(dist.irecv, b, r) for b, r in recvs])
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()

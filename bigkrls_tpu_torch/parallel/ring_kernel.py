@@ -13,7 +13,9 @@ one visiting block:
   each step is one call of the kernel-free product's cross entry,
   ``ops/matvec.kernel_matmul_cross(X_own, X_visit, V_visit, init=acc,
   out=acc)``, on the shard's device, so a D-shard product is D² launches of
-  the hand-written kernel (where the JAX package's ring runs XLA tiles).
+  the hand-written kernel (where the JAX package's ring runs XLA tiles). It
+  takes and returns row shards, so a streaming fit's basis never leaves
+  them.
 
 Virtual shards (a ring of 4 over one device) alias: moving a block to the
 device it is on returns the same tensor. The visiting blocks are only ever
@@ -150,22 +152,70 @@ def make_ring_matmul(mesh: Mesh, impl: str = "auto"):
 
     so ``eigensystem_streaming`` (including the Chebyshev flow's fused
     step), ``derivatives_streaming`` and the fit take it as their
-    ``matmul``. X (N, P) and V (N, m) are dense, or row-sharded over the
-    ring. Each shard's output block starts from its rows of ``init`` at
-    step 0; every step is one ``kernel_matmul_cross(X_own, X_visit,
+    ``matmul``. Each shard's output block starts from its rows of ``init``
+    at step 0; every step is one ``kernel_matmul_cross(X_own, X_visit,
     V_visit, init=acc, out=acc)``; ``out_scale`` is applied by the last
     step. ``fast_accum`` is passed to every step (TF32 on tile·V only),
-    where the JAX package's ring ignores it. Ragged N is zero-padded: the
-    padded rows of V are 0, so the padded columns of K add exactly 0 even
-    though K of a zero row is not 0, and the padded output rows are cut.
-    ``out`` receives the result and may be ``init``. Cached per mesh and
-    ``impl``, as the JAX package caches its ring product."""
+    where the JAX package's ring ignores it.
+
+    A row-sharded V (over this ring, N divisible by its size) gives a
+    row-sharded result: X (row-sharded alike, or dense), ``init`` and
+    ``out`` are row-sharded too, each shard's block of ``out`` is written
+    in place (it may be ``init``'s), and no shard holds X, V or Y whole. A
+    dense V gives a dense result: the operands are zero-padded to a
+    multiple of the ring size (the padded rows of V are 0, so the padded
+    columns of K add exactly 0 even though K of a zero row is not 0), and
+    the result is gathered and cut to N rows; ``out`` receives it and may
+    be ``init``. Cached per mesh and ``impl``, as the JAX package caches
+    its ring product."""
     from ..ops.matvec import kernel_matmul_cross
     d = mesh.size
 
+    def steps(xs, vs, inits, accs, sigma, out_scale, fast_accum):
+        visit = list(zip(xs, vs))
+        for s in range(d):
+            last = s + 1 == d
+            for k in range(d):
+                if xs[k] is None:
+                    continue
+                xv, vv = visit[k]
+                kernel_matmul_cross(
+                    xs[k], xv, vv, sigma,
+                    init=inits[k] if s == 0 else accs[k],
+                    out_scale=out_scale if last else None,
+                    fast_accum=fast_accum, impl=impl, out=accs[k])
+            if not last:
+                visit = _rotate(visit, mesh)
+
+    def sharded(X, V, sigma, init, out_scale, fast_accum, out):
+        n, m = V.shape
+        for t in (X, init, out):
+            if isinstance(t, ShardedTensor) and (t.mesh is not mesh
+                                                 or t.spec != "row"):
+                raise ValueError(f"ring product: {t} is not row-sharded "
+                                 f"over this ring")
+        if V.mesh is not mesh or V.spec != "row" or n % d:
+            raise ValueError(f"ring product: a sharded V must be "
+                             f"row-sharded over this ring with N divisible "
+                             f"by {d}, got {V}")
+        xs = (X.shards if isinstance(X, ShardedTensor)
+              else _ring_blocks(X, mesh, n))
+        vs = [None if v is None else v.contiguous() for v in V.shards]
+        inits = init.shards if init is not None else [None] * d
+        accs = (out.shards if out is not None else
+                [None if v is None else v.new_empty((n // d, m))
+                 for v in vs])
+        steps(xs, vs, inits, accs, sigma, out_scale, fast_accum)
+        if out is not None:
+            return out
+        return ShardedTensor(mesh, "row", (n, m), accs, V.dtype)
+
     def ring_matmul(X, V, sigma, *, init=None, out_scale=None,
                     fast_accum: bool = False, out=None):
-        X, V, init = dense(X), dense(V), dense(init)
+        if isinstance(V, ShardedTensor):
+            return sharded(X, V, sigma, init, out_scale, fast_accum, out)
+        X = dense(X, label="ring product: X of a dense V")
+        init = dense(init, label="ring product: init of a dense V")
         n, m = X.shape[0], V.shape[1]
         if V.shape[0] != n:
             raise ValueError(f"ring matmul: X has {n} rows, V {V.shape[0]}")
@@ -181,25 +231,12 @@ def make_ring_matmul(mesh: Mesh, impl: str = "auto"):
         else:
             accs = [xs[k].new_empty((npad // d, m)) if xs[k] is not None
                     else None for k in range(d)]
-        visit = list(zip(xs, vs))
-        for s in range(d):
-            last = s + 1 == d
-            for k in range(d):
-                if xs[k] is None:
-                    continue
-                xv, vv = visit[k]
-                kernel_matmul_cross(
-                    xs[k], xv, vv, sigma,
-                    init=inits[k] if s == 0 else accs[k],
-                    out_scale=out_scale if last else None,
-                    fast_accum=fast_accum, impl=impl, out=accs[k])
-            if not last:
-                visit = _rotate(visit, mesh)
-        Y = ShardedTensor(mesh, "row", (npad, m), accs)
+        steps(xs, vs, inits, accs, sigma, out_scale, fast_accum)
         if out is not None and accs[0] is not None and \
                 accs[0].data_ptr() == out.data_ptr():
             return out
-        Y = Y.full(X.device)[:n]
+        Y = ShardedTensor(mesh, "row", (npad, m), accs, X.dtype).full(
+            X.device, label="ring product: the result of a dense V")[:n]
         if out is None:
             return Y
         out.copy_(Y)

@@ -21,6 +21,11 @@ package loads in the other:
 
 ``load_model(path, device="cuda", dtype=None)`` puts a model's tensors on
 ``device``; ``dtype=None`` keeps the dtype they were saved in.
+
+A mesh fit's model (K block-sharded, Q row-sharded) is saved in the same
+format: each sharded array is fetched to the host of process 0 shard by
+shard (block row by block row for K), so no device holds it whole, and
+process 0 alone writes; it loads as a single-device model.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ import torch
 from .convert import model_from_numpy
 from .crossvalidate import KRLSCrossValidation, KRLSFold
 from .native import matstore
+from .parallel.sharded import (ShardedTensor, _rank, host_gather,
+                               process_zero_writes)
 from .types import KRLSModel, KRLSPrediction
 
 MMAP_THRESHOLD = 4_000_000  # elements; at or above, a raw .bin file
@@ -52,8 +59,11 @@ _PRED_ARRAYS = ["predicted", "se_pred", "newdata", "newdataK", "ytest",
 
 
 def _host(v):
-    """A tensor as a host numpy array in its own dtype; anything else as
+    """A tensor as a host numpy array in its own dtype (a sharded one
+    fetched shard by shard to process 0; None elsewhere); anything else as
     it is."""
+    if isinstance(v, ShardedTensor):
+        return host_gather(v, label="save_model", dst=0)
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return v
@@ -74,7 +84,7 @@ def _save_arrays(folder: str, arrays: Dict[str, Any]) -> None:
     for name, arr in arrays.items():
         if arr is None:
             continue
-        arr = np.asarray(_host(arr))
+        arr = np.asarray(arr)
         if native and arr.size >= MMAP_THRESHOLD and arr.dtype == np.float64:
             big[name] = arr
         else:
@@ -105,7 +115,8 @@ def _load_arrays(folder: str) -> Dict[str, np.ndarray]:
 
 
 def _save_one(obj, folder: str) -> None:
-    os.makedirs(folder, exist_ok=True)
+    if _rank() == 0:
+        os.makedirs(folder, exist_ok=True)
     if isinstance(obj, KRLSModel):
         arrays = {name: getattr(obj, name) for name in _MODEL_ARRAYS}
         fac = obj.vcov_c_factored
@@ -126,9 +137,14 @@ def _save_one(obj, folder: str) -> None:
                 "MSE": obj.MSE}
     else:
         raise TypeError(f"cannot save object of type {type(obj)}")
-    _save_arrays(folder, arrays)
-    with open(os.path.join(folder, "meta.json"), "w") as fh:
-        json.dump(meta, fh, default=float)
+    # every process takes part in fetching the sharded arrays; one writes
+    sharded = [a for a in arrays.values() if isinstance(a, ShardedTensor)]
+    arrays = {name: _host(arr) for name, arr in arrays.items()}
+    with process_zero_writes(*sharded) as writer:
+        if writer:
+            _save_arrays(folder, arrays)
+            with open(os.path.join(folder, "meta.json"), "w") as fh:
+                json.dump(meta, fh, default=float)
 
 
 def save_model(obj, path: str, overwrite_existing: bool = False,
@@ -139,7 +155,8 @@ def save_model(obj, path: str, overwrite_existing: bool = False,
     ``overwrite_existing``, like the reference's ``make_path``).
     """
     path = _unique_path(path, overwrite_existing)
-    os.makedirs(path, exist_ok=True)
+    if _rank() == 0:
+        os.makedirs(path, exist_ok=True)
     if isinstance(obj, KRLSCrossValidation):
         meta: Dict[str, Any] = {
             "class": "KRLSCrossValidation", "type": obj.type,
@@ -153,8 +170,9 @@ def save_model(obj, path: str, overwrite_existing: bool = False,
             meta["folds"] = obj.folds.tolist()
         if obj.indices is not None:
             meta["indices"] = {k: v.tolist() for k, v in obj.indices.items()}
-        with open(os.path.join(path, "meta.json"), "w") as fh:
-            json.dump(meta, fh, default=float)
+        if _rank() == 0:
+            with open(os.path.join(path, "meta.json"), "w") as fh:
+                json.dump(meta, fh, default=float)
         for k, fold in enumerate(obj.fold_results):
             _save_one(fold.trained, os.path.join(path, f"fold_{k + 1}",
                                                  "trained"))

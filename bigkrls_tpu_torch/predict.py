@@ -18,7 +18,11 @@ Port of ``bigkrls_tpu/predict.py`` (``predict.bigKRLS``,
 
 The device and dtype are those of the model's kernel or, for a model
 without one (a streaming fit, a converted model), of its covariance
-factor.
+factor. A mesh fit's model (K block-sharded, Q row-sharded) predicts over
+its mesh: the training rows are laid out as Q's, each row shard's cross
+kernel is one K1 launch on its device, and ŷ = K_new·c and the SEs'
+Qᵀ·K_newᵀ are sums over the row shards; ``newdataK`` is fetched to the
+host shard by shard.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ import numpy as np
 import torch
 
 from .ops.kernels import cross_kernel_matrix
+from .parallel.sharded import (ShardedTensor, gram, host_gather, mesh_of,
+                               place, rows_map)
 from .types import KRLSModel, KRLSPrediction
 from .utils.precision import matmul_precision
 
@@ -36,13 +42,13 @@ AUTO_BLOCK_ELEMS = 50_000_000
 
 def _model_placement(model: KRLSModel):
     for t in (model.K, getattr(model.vcov_c_factored, "Q", None)):
-        if isinstance(t, torch.Tensor):
+        if isinstance(t, (torch.Tensor, ShardedTensor)):
             return t.device, t.dtype
     return torch.device("cpu"), torch.float64
 
 
 def _np(t) -> np.ndarray:
-    return t.detach().cpu().double().numpy()
+    return host_gather(t).astype(np.float64)
 
 
 def predict(model: KRLSModel, newdata, se_pred: bool = False,
@@ -68,9 +74,11 @@ def _predict_impl(model, newdata, se_pred, correct_SE, ytest,
             "refit with vcov_est=True to compute standard errors on predictions")
 
     device, dtype = _model_placement(model)
+    mesh = mesh_of(getattr(model.vcov_c_factored, "Q", None), model.K)
     Xm = model.X.mean(axis=0)
     Xs = model.X.std(axis=0, ddof=1)
-    X_std = torch.as_tensor((model.X - Xm) / Xs, dtype=dtype, device=device)
+    X_std = torch.as_tensor((model.X - Xm) / Xs, dtype=dtype,
+                            device=device if mesh is None else "cpu")
     new_std = torch.as_tensor((newdata_np - Xm) / Xs, dtype=dtype,
                               device=device)
 
@@ -89,7 +97,15 @@ def _predict_impl(model, newdata, se_pred, correct_SE, ytest,
             "and needs the full cross kernel; pass block_size=None (and "
             "enough memory) to request it at this scale.")
 
-    coeffs = torch.as_tensor(model.coeffs, dtype=dtype, device=device)
+    coeffs = torch.as_tensor(model.coeffs, dtype=dtype,
+                             device=device if mesh is None else "cpu")
+    if mesh is not None:
+        X_std, coeffs = place(X_std, mesh, "row"), place(coeffs, mesh, "row")
+
+    def cross_t(rows_new):
+        """K_newᵀ (N, U): one cross-kernel launch per row shard."""
+        return rows_map(lambda xs, nw: cross_kernel_matrix(
+            nw, xs, model.sigma).T, X_std, rows_new)
     fac = model.vcov_c_factored   # original y units (scale = sd(y)²)
     corr = 1.0
     if se_pred and correct_SE and model.neffective is not None:
@@ -105,20 +121,20 @@ def _predict_impl(model, newdata, se_pred, correct_SE, ytest,
             se = np.empty(U, dtype=np.float64)
         for lo in range(0, U, block_size):
             hi = min(lo + block_size, U)
-            Kb = cross_kernel_matrix(new_std[lo:hi].contiguous(), X_std,
-                                     model.sigma)
-            ypred_std[lo:hi] = _np(Kb @ coeffs)
+            KbT = cross_t(new_std[lo:hi].contiguous())
+            ypred_std[lo:hi] = _np(gram(KbT, coeffs))
             if se_pred:
-                se[lo:hi] = np.sqrt(_np(fac.quad_form_diag(Kb.T) * corr))
+                se[lo:hi] = np.sqrt(_np(fac.quad_form_diag(KbT) * corr))
     else:
-        Knew = cross_kernel_matrix(new_std, X_std, model.sigma)
-        ypred_std = _np(Knew @ coeffs)
+        KnewT = cross_t(new_std)
+        Knew = KnewT.T if isinstance(KnewT, torch.Tensor) else KnewT
+        ypred_std = _np(gram(KnewT, coeffs))
         if se_pred:
             if materialize_vcov:
-                vcov_pred = _np(fac.quad_form(Knew.T) * corr)   # (U, U)
+                vcov_pred = _np(fac.quad_form(KnewT) * corr)   # (U, U)
                 se = np.sqrt(np.diag(vcov_pred))
             else:
-                se = np.sqrt(_np(fac.quad_form_diag(Knew.T) * corr))
+                se = np.sqrt(_np(fac.quad_form_diag(KnewT) * corr))
     ypred = ypred_std * y_sd + y_mean
 
     pseudoR2 = mse = None
@@ -134,7 +150,9 @@ def _predict_impl(model, newdata, se_pred, correct_SE, ytest,
         predicted=ypred,
         se_pred=se,
         newdata=newdata_np,
-        newdataK=None if Knew is None else _np(Knew),
+        newdataK=(None if Knew is None else
+                  _np(Knew).T if isinstance(Knew, ShardedTensor)
+                  else _np(Knew)),
         ytest=ytest,
         vcov_est_pred=vcov_pred,
         pseudoR2=pseudoR2,

@@ -5,7 +5,9 @@ eigenbasis ``Q`` of the factored covariance) are torch tensors on the
 fit's device; scalars and the per-observation outputs (coefficients,
 fitted values, derivatives, eigenvalues) are numpy float64 arrays, as in
 the JAX package. The O(N²) covariances stay factored and are materialized
-only on request.
+only on request. A mesh fit's model keeps its kernel block-sharded and the
+factored covariance's Q row-sharded (``parallel/sharded.ShardedTensor``);
+every method below takes them so.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+
+from .parallel.sharded import ShardedTensor, dense, gram, rows_map
 
 Array = Any  # torch.Tensor or np.ndarray
 
@@ -44,30 +48,34 @@ class Eigensystem:
 class FactoredCovariance:
     """A covariance matrix held as ``scale · Q diag(spectrum) Qᵀ``.
 
-    ``Q`` is (N, k), ``spectrum`` (k,), both tensors on one device;
-    ``scale`` a python float."""
+    ``Q`` is (N, k), a tensor or row-sharded, ``spectrum`` (k,) a tensor on
+    Q's (first) device; ``scale`` a python float. The products with Q
+    reduce over its shards; :meth:`diag` comes back row-sharded like Q."""
 
     Q: Array
     spectrum: Array
     scale: float = 1.0
 
     def materialize(self) -> Array:
-        """Dense N×N matrix ``scale * Q diag(spectrum) Qᵀ``."""
-        return self.scale * ((self.Q * self.spectrum[None, :]) @ self.Q.T)
+        """Dense N×N matrix ``scale * Q diag(spectrum) Qᵀ`` (a row-sharded
+        Q is gathered for it)."""
+        Q = dense(self.Q, label="FactoredCovariance.materialize")
+        return self.scale * ((Q * self.spectrum[None, :]) @ Q.T)
 
     def diag(self) -> Array:
         """Diagonal in O(N·k)."""
-        return self.scale * torch.sum((self.Q * self.Q)
-                                      * self.spectrum[None, :], dim=1)
+        return rows_map(lambda q, s: self.scale * torch.sum(
+            (q * q) * s[None, :], dim=1), self.Q, self.spectrum)
 
     def quad_form(self, A: Array) -> Array:
-        """``scale * Aᵀ (Q S Qᵀ) A`` for (N, m) ``A`` in O(N·k·m)."""
-        QtA = self.Q.T @ A
+        """``scale * Aᵀ (Q S Qᵀ) A`` for (N, m) ``A`` (row-sharded like a
+        row-sharded Q) in O(N·k·m)."""
+        QtA = gram(self.Q, A)
         return self.scale * (QtA.T * self.spectrum[None, :]) @ QtA
 
     def quad_form_diag(self, A: Array) -> Array:
         """``diag(Aᵀ (QSQᵀ) A)`` without the m×m intermediate."""
-        QtA = self.Q.T @ A
+        QtA = gram(self.Q, A)
         return self.scale * torch.sum(QtA * QtA * self.spectrum[:, None],
                                       dim=0)
 
@@ -84,8 +92,9 @@ class KRLSModel:
     # --- data ---
     X: Array                       # (N, P) original units, numpy
     y: Array                       # (N,) original units, numpy
-    K: Array                       # (N, N) kernel of standardized X, tensor;
-    #                                None for a streaming (kernel-free) fit
+    K: Array                       # (N, N) kernel of standardized X, tensor
+    #                                (block-sharded for a mesh fit); None
+    #                                for a streaming (kernel-free) fit
     xlabs: Sequence[str]
 
     # --- estimates ---
@@ -150,27 +159,44 @@ class KRLSModel:
 
     @property
     def vcov_est_fitted(self) -> Optional[Array]:
-        """Dense Var(ŷ) = Kᵀ Var(c) K, materialized on demand. None for
-        a model without a stored kernel: use :meth:`vcov_fitted_diag`."""
-        if self.vcov_c_factored is None or self.K is None:
+        """Dense Var(ŷ) = Kᵀ Var(c) K, materialized on demand (for a
+        block-sharded K from the gathered K·Q). None for a model without a
+        stored kernel: use :meth:`vcov_fitted_diag`."""
+        fac = self.vcov_c_factored
+        if fac is None or self.K is None:
             return None
-        return self.vcov_c_factored.quad_form(self.K)
+        if isinstance(self.K, ShardedTensor):
+            KQ = dense(self.K @ fac.Q, label="vcov_est_fitted")
+            return fac.scale * (KQ * fac.spectrum[None, :]) @ KQ.T
+        return fac.quad_form(self.K)
 
     def vcov_fitted_diag(self) -> Optional[Array]:
-        """diag Var(ŷ) in O(N·k). For a model without a stored kernel
-        (a streaming fit, or a converted model) K·Q is recomputed by the
-        kernel-free product, on Q's device."""
+        """diag Var(ŷ) in O(N·k) (row-sharded for a mesh fit's model). For
+        a block-sharded K, K·Q is the block product; for a model without a
+        stored kernel (a streaming fit, or a converted model) K·Q is
+        recomputed by the kernel-free product, on Q's device (the ring
+        product over a row-sharded Q's ring)."""
         fac = self.vcov_c_factored
         if fac is None:
             return None
-        if self.K is not None:
+        if self.K is not None and not isinstance(self.K, ShardedTensor):
             return fac.quad_form_diag(self.K)
-        from .ops.matvec import kernel_matmul
-        Q = fac.Q.contiguous()
-        X_std = torch.as_tensor((self.X - self.x_means) / self.x_sds,
-                                dtype=Q.dtype, device=Q.device)
-        KQ = kernel_matmul(X_std, Q, self.sigma)
-        return fac.scale * torch.sum(KQ * KQ * fac.spectrum[None, :], dim=1)
+        if self.K is not None:
+            KQ = self.K @ fac.Q
+        else:
+            Q = rows_map(lambda q: q.contiguous(), fac.Q)
+            X_std = torch.as_tensor((self.X - self.x_means) / self.x_sds,
+                                    dtype=Q.dtype)
+            if isinstance(Q, ShardedTensor):
+                from .parallel.ring_kernel import make_ring_matmul
+                from .parallel.sharded import place
+                KQ = make_ring_matmul(Q.mesh)(place(X_std, Q.mesh, "row"), Q,
+                                              self.sigma)
+            else:
+                from .ops.matvec import kernel_matmul
+                KQ = kernel_matmul(X_std.to(Q.device), Q, self.sigma)
+        return rows_map(lambda kq, s: fac.scale * torch.sum(
+            kq * kq * s[None, :], dim=1), KQ, fac.spectrum)
 
     @property
     def derivative_call(self) -> bool:

@@ -53,9 +53,13 @@
    bound; the N=50,000 streaming fit over a ring of 4 shards (16 K2 cross
    launches a product) held against the single-device streaming fit; the
    default fit at N=3106, P=67 over a 2×2 mesh (the adaptive route, one K1
-   launch per block) held against the single-device fit; a full-spectrum
-   fit by block Jacobi at N=1024 held against the gathered ``eigh``; a
-   one-rank NCCL process group;
+   launch per block) held against the single-device fit; both mesh fits
+   under the gather log (``parallel/sharded.record_gathers``): no N×N
+   object and no N-row object off ``GATHER_ALLOWED`` may be gathered, and
+   their warm times and peak memory are printed beside a single-device
+   warm fit's of the same run; a full-spectrum fit by block Jacobi at
+   N=1024 held against the gathered ``eigh``; a one-rank NCCL process
+   group;
 10. prints one JSON line for the kernels, then the result line.
 
 Any failed check exits non-zero without the result line. No JAX is used.
@@ -1138,23 +1142,68 @@ def check_k2_cross(failures):
     return out
 
 
+def warm_fit(bt, y, X, **kw):
+    """One warm fit: (model, synced wall seconds, peak bytes the fit
+    allocated above what was allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = bt.fit(y, X, noisy=False, **kw)
+    torch.cuda.synchronize()
+    return m, time.perf_counter() - t0, torch.cuda.max_memory_allocated() \
+        - base
+
+
+def gather_budget(tag, log, n, failures):
+    """Print a mesh fit's gather log; any N×N gather, or N-row gather off
+    ``GATHER_ALLOWED``, is a failure. Returns the log's summary."""
+    from bigkrls_tpu_torch.parallel.sharded import GATHER_ALLOWED
+    bad = log.offending(n)
+    labels = sorted({lab for lab, _ in log.entries})
+    print(f"{tag} gathers: {log.count} ({log.elements} elements), labels "
+          f"{labels}; off the allow-list {sorted(GATHER_ALLOWED)}: {bad}",
+          flush=True)
+    if bad:
+        failures.append(f"{tag}: gathered {bad}")
+    return {k: v for k, v in log.summary().items() if k != "entries"}
+
+
+def mesh_vs_one(tag, bt, y, X, mesh_kw, one_kw):
+    """Warm fits over the mesh and on the one device, in turns (mesh, one,
+    one, mesh): times and peak memory of each, printed and returned."""
+    runs = {"mesh": [], "one": []}
+    for side in ("mesh", "one", "one", "mesh"):
+        _, t, peak = warm_fit(bt, y, X, **(mesh_kw if side == "mesh"
+                                           else one_kw))
+        runs[side].append((t, peak))
+    out = {side: {"warm_s": [r[0] for r in v],
+                  "peak_gib": [r[1] / 2 ** 30 for r in v]}
+           for side, v in runs.items()}
+    print(f"{tag} warm fits, mesh / one device (in turns m, 1, 1, m): "
+          f"{out['mesh']['warm_s'][0]:.4f}, {out['one']['warm_s'][0]:.4f}, "
+          f"{out['one']['warm_s'][1]:.4f}, {out['mesh']['warm_s'][1]:.4f} s;"
+          f" peak allocated above the start {out['mesh']['peak_gib'][0]:.4f}"
+          f" / {out['one']['peak_gib'][0]:.4f} GiB", flush=True)
+    return out
+
+
 def ring_fit(bt, mesh, m_stream, warm_stream_s, failures):
     """The N=50,000 streaming fit over a ring of the mesh's shards, held
     against the single-device streaming fit. Returns K2's cross launches in
-    the fit and the warm fit time."""
+    the fit, the warm fit time and the gather and memory record."""
+    from bigkrls_tpu_torch.parallel.sharded import record_gathers
     y, X = streaming_data(SN)
     kw = dict(neig=SNEIG, which_derivatives=[0, 1, 2, 3, 4], mesh=mesh)
     counts = Counts()
     t0 = time.perf_counter()
-    m = bt.fit(y, X, **kw)
+    with record_gathers() as log:
+        m = bt.fit(y, X, **kw)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     _, k2, k2_fast = counts.read()
     cross = counts.cross()
-    t0 = time.perf_counter()
-    m_warm = bt.fit(y, X, noisy=False, **kw)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
+    m_warm, warm, _ = warm_fit(bt, y, X, **kw)
     want = RING_PRODUCTS * MESH_SHARDS ** 2
     rep = m.sharding_report
     print(f"ring streaming fit N={SN} over {MESH_SHARDS} shards of cuda:0: "
@@ -1164,6 +1213,9 @@ def ring_fit(bt, mesh, m_stream, warm_stream_s, failures):
           f"{m.lastkeeper}; K2 launches {k2} (cross {cross}, fast {k2_fast}; "
           f"expected {want} = {RING_PRODUCTS} products x {MESH_SHARDS}^2); "
           f"Q {rep['Q']}", flush=True)
+    record = {"gathers": gather_budget("ring fit", log, SN, failures),
+              **mesh_vs_one("ring fit", bt, y, X, kw,
+                            {k: v for k, v in kw.items() if k != "mesh"})}
     if (k2, cross, k2_fast) != (want, want, 0):
         failures.append(f"ring fit: K2 launches {k2}, cross {cross}, fast "
                         f"{k2_fast}; expected {want} cross launches")
@@ -1171,27 +1223,31 @@ def ring_fit(bt, mesh, m_stream, warm_stream_s, failures):
         failures.append(f"ring fit took {m.eig_path!r}")
     if rep["X_std"]["devices"] != MESH_SHARDS or rep["Q"]["replicated"]:
         failures.append(f"ring fit: sharding report {rep}")
+    if rep["X_std"]["shard_shape"][0] != SN // MESH_SHARDS:
+        failures.append(f"ring fit: X_std {rep['X_std']}")
     print("ring fit vs the single-device streaming fit (card f32):")
     compare(m, m_stream, bt.predict(m, X[:10], se_pred=True),
             bt.predict(m_stream, X[:10], se_pred=True), y, failures)
     del m, m_warm
     torch.cuda.empty_cache()
-    return cross, warm
+    return cross, warm, record
 
 
 def dense_mesh_fit(bt, mesh, m_dense, failures):
     """The default fit at N=3106, P=67 over a 2×2 mesh: the adaptive route,
     one K1 launch per block; held against the single-device card fit.
-    Returns K1's launches in the fit and the warm fit time."""
+    Returns K1's launches in the fit, the warm fit time and the gather and
+    memory record."""
     from bigkrls_tpu_torch.ops import kernels
+    from bigkrls_tpu_torch.parallel.sharded import ShardedTensor, \
+        record_gathers
     y, X = smoke_data()
     counts = Counts()
-    m = bt.fit(y, X, mesh=mesh)
+    with record_gathers() as log:
+        m = bt.fit(y, X, mesh=mesh)
     torch.cuda.synchronize()
     k1 = kernels.gauss_tile_launches
-    t0 = time.perf_counter()
-    m_warm = bt.fit(y, X, mesh=mesh, noisy=False)
-    warm = time.perf_counter() - t0
+    m_warm, warm, _ = warm_fit(bt, y, X, mesh=mesh)
     rep = m.sharding_report
     print(f"dense fit N={N} P={P} over a {mesh.shape[0]}x{mesh.shape[1]} mesh "
           f"of cuda:0: eig_path {m.eig_path}, lambda {m.lambda_:.6g}, "
@@ -1208,10 +1264,15 @@ def dense_mesh_fit(bt, mesh, m_dense, failures):
                         f"{mesh.size}")
     if rep["K"]["devices"] != mesh.size or rep["Q"]["devices"] !=             mesh.shape[0]:
         failures.append(f"dense mesh fit: sharding report {rep}")
+    if not (isinstance(m.K, ShardedTensor) and m.K.spec == "block"):
+        failures.append("dense mesh fit: the model's K is not block-sharded")
+    record = {"gathers": gather_budget("dense mesh fit", log, N, failures),
+              **mesh_vs_one("dense mesh fit", bt, y, X, {"mesh": mesh},
+                            {"device": "cuda"})}
     print("dense mesh fit vs the single-device card fit:")
     compare(m, m_dense, bt.predict(m, X[:10], se_pred=True),
             bt.predict(m_dense, X[:10], se_pred=True), y, failures)
-    return k1, warm
+    return k1, warm, record
 
 
 def jacobi_fit(bt, mesh, failures):
@@ -1291,12 +1352,14 @@ def mesh_phase(bt, m_dense, m_stream, warm_stream_s, failures):
     t_phase = time.perf_counter()
     mesh = make_mesh(devices=[torch.device("cuda", 0)] * MESH_SHARDS)
     cross = check_k2_cross(failures)
-    k2_ring, ring_warm = ring_fit(bt, mesh, m_stream, warm_stream_s,
-                                  failures)
-    k1_mesh, dense_warm = dense_mesh_fit(bt, mesh, m_dense, failures)
+    k2_ring, ring_warm, ring_rec = ring_fit(bt, mesh, m_stream,
+                                            warm_stream_s, failures)
+    k1_mesh, dense_warm, dense_rec = dense_mesh_fit(bt, mesh, m_dense,
+                                                    failures)
     jacobi_fit(bt, mesh, failures)
     nccl_group(failures)
     print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(json.dumps({"mesh_fits": {"ring": ring_rec, "dense": dense_rec}}))
     return {"k1": {"dense_mesh_fit_blocks": k1_mesh},
             "k2": {"ring_fit_cross": k2_ring}, "cross": cross,
             "ring_warm_s": ring_warm, "dense_mesh_warm_s": dense_warm}

@@ -18,6 +18,14 @@ CPU64 = dict(device="cpu", dtype=torch.float64)
 
 
 @pytest.fixture(scope="module")
+def rng():
+    """The conftest's generator (seed 1234), fresh for this file: the
+    session-scoped one's state depends on which files a test worker ran
+    before this one, and the tests here read it in file order."""
+    return np.random.default_rng(1234)
+
+
+@pytest.fixture(scope="module")
 def mtcars_fits():
     y, X, labs = mtcars_xy()
     mj = bk.fit(y, X, eigtrunc=0.0, xlabs=labs, noisy=False)

@@ -304,12 +304,90 @@ def test_sharding_report(mesh_fits):
     assert ms.sharding_report["X_std"]["shard_shape"] == (16, 3)
 
 
+# the budget fits: the adaptive route on a 2×2 mesh (progressive Krylov
+# basis: 6·104 columns of 1024 rows) and the streaming route on a ring of 4
+# (9·40 columns of 512 rows), both past the small-N flows whose basis is
+# wider than N
+_BUDGET = {"dense": (1024, dict(eig_method="adaptive", eigtrunc=0.001)),
+           "ring": (512, dict(streaming=True, neig=16))}
+
+
+@pytest.fixture(scope="module")
+def budget_fits():
+    """Each budget case fitted over the mesh under a gather log, and on
+    one device."""
+    mesh = tsh.make_mesh(devices=["cpu"] * 4)
+    out = {}
+    for name, (n, kw) in _BUDGET.items():
+        y, X = _synth(21, n)
+        with tsh.record_gathers() as log:
+            m = bt.fit(y, X, mesh=mesh, **CPU64, **kw)
+        out[name] = (m, bt.fit(y, X, **CPU64, **kw), log, y, X)
+    return out
+
+
+@pytest.mark.parametrize("case", list(_BUDGET))
+def test_sharding_report_is_the_layout_the_work_ran_on(budget_fits, case):
+    """The report describes the objects the fit computed with: Q is the
+    model's row-sharded covariance factor, never gathered on the way (the
+    gather log holds only the final fetch of the model's fields), and on a
+    dense route K stays block-sharded on the model."""
+    m, _, log, _, X = budget_fits[case]
+    rep, Q = m.sharding_report, m.vcov_c_factored.Q
+    assert isinstance(Q, tsh.ShardedTensor) and Q.spec == "row"
+    assert rep["Q"] == tsh.shard_info(Q)
+    assert rep["Q"]["devices"] == (4 if case == "ring" else 2)
+    assert rep["X_std"]["shard_shape"][0] == X.shape[0] // rep["Q"]["devices"]
+    assert {lab for lab, _ in log.entries} == {"host_gather"}, log.entries
+    if case == "dense":
+        assert isinstance(m.K, tsh.ShardedTensor) and m.K.spec == "block"
+        assert rep["K"] == tsh.shard_info(m.K)
+    else:
+        assert m.K is None and "K" not in rep
+
+
+@pytest.mark.parametrize("case", list(_BUDGET))
+def test_mesh_fit_gather_budget(budget_fits, case, tmp_path):
+    """No N×N object and no N-row object off ``GATHER_ALLOWED`` is gathered
+    by the fit or by ``predict(se_pred=True)``; the fit matches the
+    single-device fit; ``save_model`` writes the mesh model shard by shard
+    and the loaded (single-device) model predicts as the mesh model does
+    (1e-12 of the scale), SEs included."""
+    m, m1, log, y, X = budget_fits[case]
+    n = X.shape[0]
+    assert log.offending(n) == [], log.entries
+    assert m.lambda_ == pytest.approx(m1.lambda_, rel=1e-9)
+    assert np.max(np.abs(m.coeffs - m1.coeffs)) <= 1e-9
+    assert np.max(np.abs(m.derivatives - m1.derivatives)) <= 1e-8
+    with tsh.record_gathers() as plog:
+        p = bt.predict(m, X[:9], se_pred=True)
+    assert plog.offending(n) == [], plog.entries
+    p1 = bt.predict(m1, X[:9], se_pred=True)
+    assert np.max(np.abs(p.predicted - p1.predicted)) <= 1e-9
+    assert np.allclose(p.se_pred, p1.se_pred, rtol=1e-7)
+    with tsh.record_gathers() as slog:
+        folder = bt.save_model(m, str(tmp_path / "m"))
+    assert all(lab == "save_model" for lab, _ in slog.entries), slog.entries
+    back = bt.load_model(folder, device="cpu")
+    assert isinstance(back.K, (torch.Tensor, type(None)))
+    pb = bt.predict(back, X[:9], se_pred=True)
+    scale = np.max(np.abs(p.predicted))
+    assert np.max(np.abs(pb.predicted - p.predicted)) <= 1e-12 * scale
+    assert np.max(np.abs(pb.se_pred - p.se_pred)) <= 1e-12 * scale
+    assert np.array_equal(pb.newdataK, p.newdataK) or np.max(
+        np.abs(pb.newdataK - p.newdataK)) <= 1e-12
+
+
 def test_mesh_fit_through_crossvalidate_and_save(mesh_fits, tmp_path):
+    """The mesh model (K block-sharded, Q row-sharded) saved and loaded as
+    a single-device model predicts as it does: its sums over row shards
+    and the loaded model's whole products differ by rounding only."""
     mt, _, y, X, _ = mesh_fits["dense"]
     folder = bt.save_model(mt, str(tmp_path / "m"))
     back = bt.load_model(folder, device="cpu")
-    assert np.array_equal(bt.predict(back, X[:4]).predicted,
-                          bt.predict(mt, X[:4]).predicted)
+    want = bt.predict(mt, X[:4]).predicted
+    assert np.max(np.abs(bt.predict(back, X[:4]).predicted - want)) \
+        <= 1e-12 * np.max(np.abs(want))
     cv = bt.crossvalidate(y, X, seed=1, ptesting=20,
                           mesh=tsh.make_mesh(devices=["cpu"] * 4), **CPU64)
     cv1 = bt.crossvalidate(y, X, seed=1, ptesting=20, **CPU64)

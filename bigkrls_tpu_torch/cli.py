@@ -8,6 +8,7 @@
     python -m bigkrls_tpu_torch plot model_dir -o effects.png
     python -m bigkrls_tpu_torch explore model_dir -o effects.html
     python -m bigkrls_tpu_torch warmup --shapes 3106x67
+    python -m bigkrls_tpu_torch bench
 
 Every subcommand takes ``--device`` (default ``cuda``) and ends its output
 with a JSON line that names the device its model ran on. CSVs are numeric
@@ -15,8 +16,9 @@ with an optional single header row, parsed by the native reader when it
 is built. ``--mesh`` ('all', a device count such as '4', or a 2-D shape
 such as '2x4') fits over a mesh of the visible devices of ``--device``'s
 type; virtual shards (several shards of one device) are available through
-the API only (``parallel/sharded.make_mesh``). ``bench`` (the port's
-benchmark) is not ported and is refused.
+the API only (``parallel/sharded.make_mesh``). ``bench`` runs the port's
+benchmark (``bench.py``: root ``bench.py``'s metrics, one JSON record a
+line, the primary last; ``BENCH_BUDGET_S`` bounds its wall clock).
 """
 from __future__ import annotations
 
@@ -205,8 +207,15 @@ def main(argv=None) -> int:
     pe.add_argument("--title", type=str, default=None)
     _add_device_arg(pe)
 
-    sub.add_parser("bench", help="the port's benchmark: not ported "
-                                 "(refused)")
+    pb = sub.add_parser("bench", help="the port's benchmark (root "
+                                      "bench.py's metrics)")
+    pb.add_argument("--election-csv", default=None,
+                    help="the election data (y in column 0); default: the "
+                         "seeded low-rank design of its shape")
+    pb.add_argument("--census-csv", default=None,
+                    help="the census replication data (y in column 1, X "
+                         "from column 2); default: as --election-csv")
+    _add_device_arg(pb)
 
     pw = sub.add_parser(
         "warmup",
@@ -232,9 +241,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.cmd == "bench":
-        print("bigkrls_tpu_torch bench: the port's benchmark is not ported",
-              file=sys.stderr)
-        return 2
+        from bigkrls_tpu_torch import bench
+        return bench.main(device=args.device, election_csv=args.election_csv,
+                          census_csv=args.census_csv)
 
     import bigkrls_tpu_torch as bt
     from bigkrls_tpu_torch.utils.io import design_from_csv, load_csv

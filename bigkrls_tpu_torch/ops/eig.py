@@ -36,6 +36,9 @@ from . import matvec
 
 # above this many rows an f32 block is orthonormalized by CholeskyQR²
 CHOLQR_MIN_ROWS = 16384
+# from this many rows the streaming solver reports progress after every
+# product (the JAX package's rule: one product is seconds long there)
+PER_PRODUCT_PROGRESS_N = 200_000
 
 _LOG = logging.getLogger("bigkrls_tpu_torch")
 
@@ -576,7 +579,9 @@ def eigensystem_streaming(
     ``start`` is the (n, q) start block before orthonormalization, q from
     ``_krylov_geometry(n, neig, iters)``; by default :func:`start_block`
     with ``seed``. ``progress(done, total)`` is called after every
-    ``chunk`` products, after the device has finished them.
+    ``chunk`` products, after the device has finished them; from
+    N = 200,000 after every product (``chunk`` clamped to 1), as in the
+    JAX package.
 
     ``mesh`` (a ring, passed together with its ring ``matmul``,
     ``parallel/ring_kernel.make_ring_matmul``): when N divides evenly, X,
@@ -596,6 +601,8 @@ def eigensystem_streaming(
     if rows:
         X_std = place(X_std, mesh, "row")
     neig = min(int(neig), n)
+    if n >= PER_PRODUCT_PROGRESS_N:
+        chunk = min(chunk, 1)
     dtype, device = X_std.dtype, X_std.device
     q, progressive = _krylov_geometry(n, neig, iters)
 

@@ -42,6 +42,8 @@ measured against; no public argument reaches it.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .kernels import _sm_count, _sqdist, _use_tile
@@ -53,6 +55,9 @@ from .kernels import _sm_count, _sqdist, _use_tile
 kernel_matmul_launches = 0
 kernel_matmul_fast_launches = 0
 kernel_matmul_cross_launches = 0
+# the same launches by shape and mode, (N, Nb, P, m, mode) with Nb = 0 for
+# the square entry: what work they did, for a bound on its time
+kernel_matmul_shapes: collections.Counter = collections.Counter()
 
 
 def _span(t):
@@ -355,6 +360,7 @@ def _kernel_matmul_cuda(X, V, sigma, init, out_scale, fast_accum, out,
         raise RuntimeError(f"kernel_matmul: CUDA launch failed with error "
                            f"{err}")
     kernel_matmul_launches += 1
+    kernel_matmul_shapes[(n, nb, p, m, mode)] += 1
     if Xb is not None:
         kernel_matmul_cross_launches += 1
     if mode == "fast":

@@ -375,10 +375,12 @@ def test_cli_warmup_reports_both_fits(tmp_path, capsys):
         {p["phase"] for p in rep["steady_timings"]}
 
 
-def test_cli_refuses_mesh_and_bench(tmp_path, capsys):
+def test_cli_refuses_mesh_runs_bench(tmp_path, capsys, monkeypatch):
     """A mesh the visible devices cannot hold is refused with the JAX
     package's message (virtual shards are API-only), a mesh that is not a
-    ``Mesh`` raises, and ``bench`` (not ported) exits 2."""
+    ``Mesh`` raises, and ``bench`` runs the port's benchmark (here on the
+    CPU at a small N, a zero budget): exit 0, the primary printed last."""
+    from bigkrls_tpu_torch import bench
     y, X = _data()
     data = str(tmp_path / "d.csv")
     _write_csv(data, y, X)
@@ -387,8 +389,16 @@ def test_cli_refuses_mesh_and_bench(tmp_path, capsys):
               "--device", "cpu"])
     with pytest.raises(TypeError, match="Mesh"):
         bt.fit(y, X, mesh=object(), **CPU64)
-    assert main(["bench"]) == 2
-    assert "benchmark is not ported" in capsys.readouterr().err
+    capsys.readouterr()
+    monkeypatch.setattr(bench, "N", 512)
+    monkeypatch.setattr(bench, "P", 8)
+    monkeypatch.setenv("BENCH_BUDGET_S", "0")
+    assert main(["bench", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    recs = [json.loads(line) for line in lines]
+    assert recs[-1]["metric"] == bench.PRIMARY and recs[-1]["reps"] == 9
+    assert recs[-1]["device"] == "cpu"
+    assert all("skipped" in r for r in recs[:-1]) and len(recs) == 4
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +443,7 @@ def test_reducibility_matches_jax(loss, q):
 
 _PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in
                      (ROOT / "bigkrls_tpu_torch").rglob("*.py")) \
-    + ["chip_smoke.py"]
+    + ["chip_smoke.py", "tools/scale_fits.py"]
 
 
 @pytest.mark.parametrize("path", _PORT_FILES)
@@ -457,6 +467,12 @@ def test_port_imports_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in banned, (path, name)
+
+
+def test_port_scan_covers_bench():
+    """The scan above reaches the port's benchmark and its scale check."""
+    assert {"bigkrls_tpu_torch/bench.py", "tools/scale_fits.py"} <= \
+        set(_PORT_FILES)
 
 
 def test_port_scan_covers_parallel():

@@ -55,7 +55,10 @@
 //       the product is mma.sync: a wgmma accumulator is the whole 64 x N
 //       block, and a second one does not fit beside it.
 //     FAST: one pass on the hi parts (TF32-rounded tile and V), the
-//       counterpart of Precision.DEFAULT on tile . V only.
+//       counterpart of Precision.DEFAULT on tile . V only; its 8-deep partial
+//       sums go into the running sum by an IEEE add as SPLIT's do (added
+//       directly, the accumulator's truncation made a 1M-row product 7.5x as
+//       far from float64 as the same TF32 rounding with IEEE sums).
 //     FMA: no tensor cores; each output is an IEEE fp32 FMA chain over j
 //       ascending, in the same accumulator layout. It is what SPLIT's error is
 //       measured against and is reached only by tools and tests.
@@ -564,11 +567,11 @@ kernel_matmul_kernel(const float* __restrict__ Xa, const float* __restrict__ ra,
               const float v1 = Vst[(ks + tq + 4) * WP + 8 * nt + gq];
               const float h0 = tf32_rna(v0), h1 = tf32_rna(v1);
               const unsigned bh0 = __float_as_uint(h0), bh1 = __float_as_uint(h1);
+              // the tensor cores' fp32 sum truncates: they take the 8-deep
+              // partial sums only, and the running sum is an IEEE add
               if constexpr (MODE == SPLIT) {
                 const unsigned bl0 = __float_as_uint(tf32_rna(__fsub_rn(v0, h0)));
                 const unsigned bl1 = __float_as_uint(tf32_rna(__fsub_rn(v1, h1)));
-                // the tensor cores' fp32 sum truncates: it takes the 8-deep
-                // partial sums only, and the running sum is an IEEE add
 #pragma unroll
                 for (int mt = 0; mt < 4; ++mt) {
                   float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -580,7 +583,12 @@ kernel_matmul_kernel(const float* __restrict__ Xa, const float* __restrict__ ra,
                 }
               } else {
 #pragma unroll
-                for (int mt = 0; mt < 4; ++mt) mma_tf32(acc[mt][nt], ahi[mt], bh0, bh1);
+                for (int mt = 0; mt < 4; ++mt) {
+                  float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                  mma_tf32(part, ahi[mt], bh0, bh1);
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e], part[e]);
+                }
               }
             }
           };

@@ -21,6 +21,7 @@ which torch cannot reproduce. The iterative solvers take an optional
 """
 from __future__ import annotations
 
+import collections
 import functools
 import logging
 from typing import Optional
@@ -39,6 +40,11 @@ CHOLQR_MIN_ROWS = 16384
 # from this many rows the streaming solver reports progress after every
 # product (the JAX package's rule: one product is seconds long there)
 PER_PRODUCT_PROGRESS_N = 200_000
+# how ``_block_orth`` has orthonormalized blocks since import, by branch:
+# "cholqr2" (CholeskyQR², its check passed), "householder_after_check"
+# (the check failed and Householder QR ran: the JAX program's ``lax.cond``
+# branch) and "householder" (f64, or fewer than CHOLQR_MIN_ROWS rows)
+block_orth_counts: collections.Counter = collections.Counter()
 
 _LOG = logging.getLogger("bigkrls_tpu_torch")
 
@@ -104,8 +110,9 @@ def _block_orth(W):
     the check fails — a host read of one flag where the JAX program used
     ``lax.cond``. On row shards the Grams are reduced over them and the
     Cholesky factors computed once and broadcast, so every process reads
-    the same flag."""
+    the same flag. Each call counts its branch in ``block_orth_counts``."""
     if W.dtype == torch.float64 or W.shape[0] < CHOLQR_MIN_ROWS:
+        block_orth_counts["householder"] += 1
         return _householder_q(W)
     mesh = mesh_of(W)
 
@@ -123,7 +130,11 @@ def _block_orth(W):
     ok = ((i1 == 0) & (i2 == 0) & torch.isfinite(L1).all()
           & torch.isfinite(L2).all() & torch.isfinite(orth_err)
           & (orth_err < 1e-5))
-    return Q2 if bool(ok) else _householder_q(W)
+    if bool(ok):
+        block_orth_counts["cholqr2"] += 1
+        return Q2
+    block_orth_counts["householder_after_check"] += 1
+    return _householder_q(W)
 
 
 def _ritz_topk(B, KB, k: int):
@@ -172,6 +183,7 @@ def _subspace_iteration(K, k: int, iters: int, extra: Optional[int] = None,
         raise ValueError(f"start block must be ({n}, {q}), got "
                          f"{tuple(start.shape)}")
     V = start.to(dtype=K.dtype, device=K.device)
+    del start       # V may be the same tensor: the solve frees it with V
     if isinstance(K, ShardedTensor):
         V = place(V, K.mesh, "row")
     V = _block_orth(V)
@@ -634,6 +646,8 @@ def eigensystem_streaming(
         raise ValueError(f"start block must be ({n}, {q}), got "
                          f"{tuple(start.shape)}")
     V = start.to(dtype=dtype, device=device)
+    # V may be the same tensor: the solve frees it with V, not at its end
+    del start
     if rows:
         V = place(V, mesh, "row")
     V = _orth(V)

@@ -165,20 +165,24 @@ def _tf32_split(x):
 
 
 def kernel_matmul_split_plain(X, V, sigma, *, init=None, out_scale=None,
-                              block: int = 1024, out=None):
+                              block: int = 1024, out=None, fast: bool = False,
+                              Xb=None):
     """Plain PyTorch version of the kernel's precise mode: the tile from
     the same rank-P formula in f32, then tile = hi + lo and V = hi + lo
-    (:func:`_tf32_round`) and three f32 ``addmm``s, lo·hi + hi·lo + hi·hi.
-    It runs on the CPU, and on a CUDA tensor with TF32 switched off; tests
-    and ``chip_smoke.py`` use it, the package does not."""
+    (:func:`_tf32_round`) and three f32 ``addmm``s, lo·hi + hi·lo + hi·hi;
+    with ``fast``, of its fast mode: hi·hi alone. ``Xb`` as in
+    :func:`kernel_matmul_plain`. It runs on the CPU, and on a CUDA tensor
+    with TF32 switched off, so every sum is an IEEE one; tests, tools and
+    ``chip_smoke.py`` use it, the package does not."""
     sigma = float(sigma)
-    _check(X, V, sigma, init, out)
+    _check(X, V, sigma, init, out, Xb)
     if X.dtype != torch.float32:
         raise TypeError(f"kernel_matmul_split_plain: float32 only, got "
                         f"{X.dtype}")
-    n = X.shape[0]
+    Xb = X if Xb is None else Xb
+    n = Xb.shape[0]
     if out is None:
-        out = torch.empty_like(V)
+        out = X.new_empty((X.shape[0], V.shape[1]))
     if init is None:
         out.zero_()
     elif out.data_ptr() != init.data_ptr():
@@ -189,9 +193,11 @@ def kernel_matmul_split_plain(X, V, sigma, *, init=None, out_scale=None,
     try:
         for lo in range(0, n, block):
             hi = min(lo + block, n)
-            t_hi, t_lo = _tf32_split(torch.exp(-_sqdist(X, X[lo:hi]) / sigma))
-            out.addmm_(t_lo, v_hi[lo:hi])
-            out.addmm_(t_hi, v_lo[lo:hi])
+            t_hi, t_lo = _tf32_split(torch.exp(-_sqdist(X, Xb[lo:hi])
+                                               / sigma))
+            if not fast:
+                out.addmm_(t_lo, v_hi[lo:hi])
+                out.addmm_(t_hi, v_lo[lo:hi])
             out.addmm_(t_hi, v_hi[lo:hi])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old

@@ -37,7 +37,21 @@
 7. holds a streaming fit against the dense subspace fit at N=8192 (and
    prints its gap to the adaptive route's fit of the same data), and the
    constant-memory Chebyshev eigensolver (fast K2 and its epilogue)
-   against its plain run and against a dense ``eigvalsh``;
+   against its plain run and against a dense ``eigvalsh``; checks that
+   ``fit`` takes the constant-memory flow by itself at N=2,000,000 on this
+   card; then runs that flow through ``fit`` at N=200,000 under the JAX
+   chip's 8 GiB planning budget (``bench.planning_budget``): its 6 K2
+   launches by shape and mode (4 fast, 2 of them through the
+   ``init``/``out`` epilogue), ``summary`` and ``predict``, held against
+   the same fit through the plain product (the LOO errors at a common λ:
+   λ* sits on the search's lower bound, set by each fit's trailing
+   eigenvalues) and printed beside the
+   progressive flow's fit of the same data; and holds K2's cross entry in
+   fast mode with ``init`` and ``out`` over it at 2,000,000 output rows
+   (byte offsets past 2³¹) against its plain version on every row, the
+   aliased call bit-equal to the unaliased one; and holds fast mode over a
+   sum of 1,000,000 products (the cross entry, 512 rows) to a gate: no
+   further from float64 than twice the same TF32 rounding with IEEE sums;
 8. runs the workflows on the card: the census replication protocol
    ``crossvalidate(ptesting=20, neig=50)`` for three seeds (stepwise
    route) and 5-fold CV (fused route) at N=3106, P=67, each held against
@@ -91,10 +105,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from bigkrls_tpu_torch.bench import (METRICS, N, P, PRIMARY, SEED,
-                                     TOL_LAMBDA_REL, k1_bound_ms, k2_bound_ms,
-                                     k2_cross_bound_ms, k2_tol, rel,
-                                     smoke_data)
+from bigkrls_tpu_torch.bench import (K2_FAST_TOL, METRICS, N, P, PRIMARY,
+                                     SEED, TOL_LAMBDA_REL, k1_bound_ms,
+                                     k2_bound_ms, k2_cross_bound_ms, k2_tol,
+                                     rel, smoke_data)
 from bigkrls_tpu_torch.bench import compare_fits as compare
 from bigkrls_tpu_torch.bench import streaming_data as bench_streaming_data
 
@@ -269,10 +283,6 @@ K2_SHAPES = [(SN, SP, SQ), (SN, SP, 22), (SN, SP, 1), (4097, 3, 5),
              (1000, 67, 130), (8192, 20, 1100)]
 
 
-# fast mode, of max|Y|: TF32 keeps 10 mantissa bits (2⁻¹¹ ≈ 5e-4, about 3
-# digits) of the tile and of V, and the kernel and cuBLAS round to TF32
-# differently, so the two agree to a few of those units, not to f32
-K2_FAST_TOL = 5e-3
 
 
 def streaming_data(n: int):
@@ -616,6 +626,227 @@ def chebyshev_phase(failures):
           f"N={flip}")
     if not picks_1m:
         failures.append("_auto_krylov: expected block-Krylov at N=1M")
+    picks_2m = eig._auto_krylov(2_000_000, SQ, 6, 4, device="cuda")
+    print(f"_auto_krylov at N=2M ({2 * 2_000_000 * 7 * SQ * 4 / 2**30:.1f} "
+          f"GiB of basis): block-Krylov {picks_2m}, so a fit there takes the "
+          f"constant-memory flow by itself")
+    if picks_2m:
+        failures.append("_auto_krylov: expected the constant-memory flow at "
+                        "N=2M")
+
+
+# the constant-memory fit: N rows under the JAX chip's planning budget,
+# where fit() takes that flow by itself
+CM_N = 200_000
+# and its K2 launches by (N, Nb, P, m, mode): two Chebyshev applications of
+# degree 2 (a start product, then a recurrence step through the init/out
+# epilogue), all fast; the precise Ritz product; the derivatives' product
+# (2 + 4·5 columns), which also gives ŷ
+CM_PLAN = {(CM_N, 0, SP, SQ, "fast"): 4, (CM_N, 0, SP, SQ, "split"): 1,
+           (CM_N, 0, SP, 22, "split"): 1}
+# the progressive flow on the same data: 6 power products and the last
+# block's Ritz product, precise, then the derivatives' product
+PROGRESSIVE_PLAN = {(CM_N, 0, SP, SQ, "split"): 7,
+                    (CM_N, 0, SP, 22, "split"): 1}
+# K2's cross entry with an output whose byte offsets pass 2^31 (from row
+# 2^31 / (4·m) = 994,205 at m = 540): (Na, Nb, P, m), fast mode, init given
+# and out over it, as the recurrence step runs
+CM_EPILOGUE = (2_000_000, 2048, SP, SQ)
+
+
+def constant_memory_phase(bt, failures):
+    """The constant-memory (Chebyshev) streaming fit through ``fit()`` at
+    N=200,000 under the JAX chip's 8 GiB planning budget
+    (``bench.planning_budget``, restored after): its 6 K2 launches, summary
+    and predict, the same flow through the plain product within PERF.md
+    §2's limits (the LOO errors at a common λ), and the gap to the
+    progressive flow on the same data (the card's own budget). Returns
+    the numbers for the kernels line."""
+    from bigkrls_tpu_torch import bench, lambda_search
+    from bigkrls_tpu_torch.ops import eig, matvec
+    y, X = bench_streaming_data(CM_N, SP)
+    kw = dict(neig=SNEIG, which_derivatives=[0, 1, 2, 3, 4], device="cuda")
+    orth = eig.block_orth_counts.copy()
+    with bench.planning_budget(bench.JAX_CHIP_BUDGET):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = Counts()
+        before = matvec.kernel_matmul_shapes.copy()
+        t0 = time.perf_counter()
+        m = bt.fit(y, X, noisy=False, **kw)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launched = dict(matvec.kernel_matmul_shapes - before)
+        s = bt.summary(m)
+        pred = bt.predict(m, X[:10], se_pred=True)
+        k1, k2, k2_fast = counts.read()
+        taken = dict(eig.block_orth_counts - orth)
+        _, warm_s, _ = warm_fit(bt, y, X, **kw)
+        t0 = time.perf_counter()
+        m_plain = bt.fit(y, X, noisy=False, kernel_impl="plain", **kw)
+        plain_s = time.perf_counter() - t0
+        pred_plain = bt.predict(m_plain, X[:10], se_pred=True)
+        # λ* sits on the search's lower bound L, which each fit sets from
+        # its own trailing eigenvalues: the LOO errors are compared at the
+        # K2 fit's λ*, the λ*s apart by the λ check
+        looe_at = bt.fit(y, X, noisy=False, kernel_impl="plain",
+                         lambda_=m.lambda_, **kw).looe
+    print(f"constant-memory fit N={CM_N} P={SP} neig={SNEIG} (planning "
+          f"budget {bench.JAX_CHIP_BUDGET / 2**30:.0f} GiB): cold {cold_s:.3f}"
+          f" s, warm {warm_s:.3f} s, plain product {plain_s:.3f} s; peak "
+          f"{peak:.2f} GiB; lambda {m.lambda_:.6g}, lastkeeper "
+          f"{m.lastkeeper}, R2 {m.R2:.6f}; K2 launches {k2} (fast "
+          f"{k2_fast}) {sorted(launched.items())}; K1 launches {k1} "
+          f"(predict); _block_orth branches {taken}", flush=True)
+    check(failures, "constant-memory fit K2 launches by shape and mode",
+          launched == CM_PLAN and (k2, k2_fast) == (6, 4),
+          f"{sorted(launched.items())} (expected {sorted(CM_PLAN.items())})")
+    ok = (np.isfinite(m.R2) and m.coeffs.shape == (CM_N,)
+          and np.all(np.isfinite(m.coeffs))
+          and m.derivatives.shape == (CM_N, 5)
+          and np.all(np.isfinite(m.derivatives))
+          and np.all(np.isfinite(pred.predicted))
+          and np.all(np.isfinite(pred.se_pred)) and np.all(pred.se_pred > 0)
+          and s.ttests.shape == (5, 4) and k1 == 1)
+    check(failures, "constant-memory fit, summary, predict(10 rows, SEs)",
+          ok, f"finite, of their shapes, predict through K1 ({k1} launch)")
+    bounds = [lambda_search._lower_bound(np.asarray(f.K_eigenvalues,
+                                                    np.float64))
+              for f in (m, m_plain)]
+    print(f"constant-memory fit, card f32 K2 vs card f32 plain product "
+          f"(lambda* / the search's lower bound: {m.lambda_:.6g} / "
+          f"{bounds[0]:.6g} and {m_plain.lambda_:.6g} / {bounds[1]:.6g}):")
+    compare(m, m_plain, pred, pred_plain, y, failures,
+            looe_ref_at_lambda=looe_at)
+    del m_plain
+    torch.cuda.empty_cache()
+
+    before = matvec.kernel_matmul_shapes.copy()
+    t0 = time.perf_counter()
+    m_prog = bt.fit(y, X, noisy=False, **kw)
+    torch.cuda.synchronize()
+    prog_s = time.perf_counter() - t0
+    prog = dict(matvec.kernel_matmul_shapes - before)
+    check(failures, "progressive fit (the card's budget) K2 launches",
+          prog == PROGRESSIVE_PLAN, f"{sorted(prog.items())}")
+    ame = float(np.max(np.abs(m.avgderivatives - m_prog.avgderivatives))
+                / np.max(np.abs(m_prog.avgderivatives)))
+    gap = {"lambda_rel": rel(m.lambda_, m_prog.lambda_),
+           "R2_abs": abs(m.R2 - m_prog.R2), "ame_of_max": ame,
+           "lastkeeper": [m.lastkeeper, m_prog.lastkeeper]}
+    print(f"  the progressive flow on the same data: {prog_s:.3f} s, lambda "
+          f"{m_prog.lambda_:.6g}, lastkeeper {m_prog.lastkeeper}, R2 "
+          f"{m_prog.R2:.6f}; gap of the constant-memory fit: "
+          f"{json.dumps(gap)}",
+          flush=True)
+    del m, m_prog
+    torch.cuda.empty_cache()
+    return {"constant_memory_launches": k2,
+            "constant_memory_fast_launches": k2_fast,
+            "constant_memory_k1_launches": k1,
+            "constant_memory_products": sorted([*key, c] for key, c
+                                               in launched.items()),
+            "constant_memory_gap": gap,
+            "epilogue_2g": check_k2_epilogue_2g(failures),
+            "fast_sum_gate": check_k2_fast_sum(failures)}
+
+
+# K2's fast mode over a long sum: the cross entry's Na rows against Nb
+# rows, (Na, Nb, P, m); each output sums Nb products
+FAST_SUM = (512, 1_000_000, SP, SQ)
+
+
+def check_k2_fast_sum(failures):
+    """The fast-mode gate: K2's cross entry in fast mode at ``FAST_SUM``,
+    against the plain product in float64, may be no further from it than
+    twice the same TF32 rounding with IEEE sums
+    (``kernel_matmul_split_plain(fast=True)``) is. The tensor cores add
+    into their fp32 accumulator by truncation, which over Nb / 8 steps
+    outgrows the rounding of the operands; the plain product under TF32 is
+    printed beside."""
+    from bigkrls_tpu_torch.ops import matvec
+    na, nb, p, m = FAST_SUM
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    Xa = torch.randn((na, p), generator=gen, device="cuda")
+    Xb = torch.randn((nb, p), generator=gen, device="cuda")
+    V = torch.randn((nb, m), generator=gen, device="cuda")
+    sigma = float(p)
+    Y = matvec.kernel_matmul_cross(Xa, Xb, V, sigma, fast_accum=True)
+    ref64 = matvec.kernel_matmul_plain(Xa.double(), V.double(), sigma,
+                                       Xb=Xb.double())
+    emu = matvec.kernel_matmul_split_plain(Xa, V, sigma, Xb=Xb, fast=True)
+    tf32 = matvec.kernel_matmul_plain(Xa, V, sigma, Xb=Xb, fast_accum=True)
+    top = ref64.abs().max().item()
+    errs = {name: (t.double() - ref64).abs().max().item() / top
+            for name, t in (("kernel", Y), ("ieee_sums", emu),
+                            ("plain_tf32", tf32))}
+    t_k = cuda_ms(lambda: matvec.kernel_matmul_cross(
+        Xa, Xb, V, sigma, fast_accum=True), 5, 1)
+    print(f"K2 fast-mode gate, cross ({na}x{nb},P={p},m={m}): max|d|/max|Y| "
+          f"vs plain f64 {errs['kernel']:.3e}; the same TF32 rounding with "
+          f"IEEE sums {errs['ieee_sums']:.3e}, the plain product under TF32 "
+          f"{errs['plain_tf32']:.3e}; kernel {t_k:.3f} ms", flush=True)
+    check(failures, "K2 fast-mode gate: no further from f64 than twice the "
+          "IEEE-sum TF32 product", errs["kernel"] <= 2 * errs["ieee_sums"],
+          f"{errs['kernel']:.3e} vs {errs['ieee_sums']:.3e}")
+    del Xa, Xb, V, Y, ref64, emu, tf32
+    torch.cuda.empty_cache()
+    return {"shape": [na, nb, p, m], "ms": t_k,
+            "max_rel_err_vs_f64": errs}
+
+
+def check_k2_epilogue_2g(failures):
+    """K2's cross entry at ``CM_EPILOGUE`` in fast mode with ``init`` and
+    ``out_scale``: every row within ``K2_FAST_TOL`` of the plain cross
+    product under TF32 (the rows past 2^31 bytes apart too), and ``out``
+    aliasing ``init`` bit-equal to the unaliased call; timed beside the
+    bound, which counts ``init`` read."""
+    from bigkrls_tpu_torch.ops import matvec
+    na, nb, p, m = CM_EPILOGUE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    Xa = torch.randn((na, p), generator=gen, device="cuda")
+    Xb = torch.randn((nb, p), generator=gen, device="cuda")
+    V = torch.randn((nb, m), generator=gen, device="cuda")
+    init = torch.randn((na, m), generator=gen, device="cuda")
+    sigma, scale = float(p), -2.5
+    kw = dict(init=init, out_scale=scale, fast_accum=True)
+    Y = matvec.kernel_matmul_cross(Xa, Xb, V, sigma, **kw)
+    ref = matvec.kernel_matmul_plain(Xa, V, sigma, Xb=Xb, block=256, **kw)
+    past = 2 ** 31 // (4 * m)         # the first row past 2^31 bytes
+    top = ref.abs().max().item()
+    err = (Y - ref).abs().max().item()
+    err_past = (Y[past:] - ref[past:]).abs().max().item()
+    t_p = cuda_ms(lambda: matvec.kernel_matmul_plain(
+        Xa, V, sigma, Xb=Xb, block=256, out=ref, **kw), 3, 1)
+    del ref
+    buf = init.clone()
+    Ya = matvec.kernel_matmul_cross(Xa, Xb, V, sigma, init=buf,
+                                    out_scale=scale, fast_accum=True, out=buf)
+    same = Ya.data_ptr() == buf.data_ptr() and torch.equal(Ya, Y)
+    del Y
+    t_k = cuda_ms(lambda: matvec.kernel_matmul_cross(
+        Xa, Xb, V, sigma, init=buf, out_scale=1.0, fast_accum=True, out=buf),
+        5, 1)
+    bound, by = k2_cross_bound_ms(na, nb, p, m, "fast", init=True)
+    print(f"K2 cross epilogue ({na}x{nb},P={p},m={m}, fast, init, out over "
+          f"init): max|d|/max|Y| vs plain TF32 {err / top:.3e} on every row, "
+          f"{err_past / top:.3e} on rows {past}-{na - 1} past 2^31 bytes "
+          f"(limit {K2_FAST_TOL:g}); aliased bit-equal to unaliased: {same}; "
+          f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {bound:.3f} ms "
+          f"({by})", flush=True)
+    check(failures, "K2 cross epilogue past 2^31 bytes vs plain",
+          err <= K2_FAST_TOL * top and err_past <= K2_FAST_TOL * top,
+          f"{err / top:.3e}, {err_past / top:.3e} (limit {K2_FAST_TOL:g})")
+    check(failures, "K2 cross epilogue: out over init bit-equal", same)
+    del Xa, Xb, V, init, buf, Ya
+    torch.cuda.empty_cache()
+    return {"shape": [na, nb, p, m], "ms": t_k, "plain_ms": t_p,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "max_rel_err": err / top, "max_rel_err_past_2g": err_past / top,
+            "aliased_bit_equal": same}
 
 
 # ---------------------------------------------------------------------------
@@ -1471,6 +1702,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{nvcc[-1]}, device {torch.cuda.get_device_name(0)}", flush=True)
     failures = []
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     oracle_build = k1_oracle.start_build()   # beside the package's nvccs
@@ -1536,6 +1768,7 @@ def main() -> int:
     k2_launches, m_stream, warm_stream = streaming_phase(bt, failures)
     streaming_vs_dense(bt, failures)
     chebyshev_phase(failures)
+    cm = constant_memory_phase(bt, failures)
     wf = workflows_phase(bt, m, m_stream, statistics.median(warm),
                          warm_stream, failures)
     mp = mesh_phase(bt, m, m_stream, warm_stream, failures)
@@ -1545,12 +1778,16 @@ def main() -> int:
     bench = bench_phase(smi.splitlines()[0].rpartition(",")[0].strip(),
                         failures)
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+          f"build to here", flush=True)
     print(json.dumps({"kernels": [{
         "name": "gauss_tile", "route": "cuda",
         "source": "bigkrls_tpu_torch/csrc/gauss_kernel.cu",
         "replaces": "bigkrls_tpu/ops/kernels.py:87",
         "launches": launches, "library_ms": None,
-        "workflow_launches": wf["k1"], "mesh_launches": mp["k1"], **k1}, {
+        "workflow_launches": wf["k1"], "mesh_launches": mp["k1"],
+        "constant_memory_launches": cm.pop("constant_memory_k1_launches"),
+        **k1}, {
         "name": "kernel_matmul", "route": "cuda",
         "source": "bigkrls_tpu_torch/csrc/kernel_matmul.cu",
         "replaces": "bigkrls_tpu/ops/matvec.py:139",
@@ -1558,7 +1795,8 @@ def main() -> int:
         "workflow_launches": wf["k2"], "mesh_launches": mp["k2"],
         "bench_launches": {r["metric"]: r["k2_launches"] for r in bench
                            if r.get("k2_launches") is not None},
-        "bench_shapes_max_rel_err": k2_bench, **mp["cross"], **k2}]}))
+        "bench_shapes_max_rel_err": k2_bench, **cm, **mp["cross"],
+        **k2}]}))
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1

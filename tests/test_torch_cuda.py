@@ -275,6 +275,28 @@ def test_kernel_matmul_fast_mode(cuda, n, p, m):
     assert (Y - ref).abs().max().item() <= 5e-3 * ref.abs().max().item()
 
 
+def test_kernel_matmul_fast_mode_sums_like_ieee(cuda):
+    """Fast mode over a sum of 1,000,000 products (the cross entry, 256
+    rows) is no further from float64 than twice the same TF32 rounding
+    with IEEE sums (``kernel_matmul_split_plain(fast=True)``): the tensor
+    cores add into their accumulator by truncation, so the kernel takes
+    their 8-deep partial sums only (added directly, the error was 7× the
+    IEEE sums' at this length)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    Xa = torch.randn((256, 20), generator=gen, device=cuda)
+    Xb = torch.randn((1_000_000, 20), generator=gen, device=cuda)
+    V = torch.randn((1_000_000, 64), generator=gen, device=cuda)
+    Y = matvec.kernel_matmul_cross(Xa, Xb, V, 20.0, fast_accum=True)
+    ref = matvec.kernel_matmul_plain(Xa.double(), V.double(), 20.0,
+                                     Xb=Xb.double())
+    emu = matvec.kernel_matmul_split_plain(Xa, V, 20.0, Xb=Xb, fast=True)
+    top = ref.abs().max().item()
+    err = (Y.double() - ref).abs().max().item() / top
+    err_emu = (emu.double() - ref).abs().max().item() / top
+    assert err <= 2 * err_emu
+
+
 # (Na, Nb, P, m): a ring step of the N=50,000 fit on 4 shards (scaled
 # down), ragged row counts on both sides, fewer rows than one tile, P past
 # one chunk, and the derivatives stack's width

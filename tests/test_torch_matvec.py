@@ -113,6 +113,56 @@ def test_split_product_checks_and_aliasing():
         tmv.kernel_matmul_split_plain(X, V, 3.0, out=V)
 
 
+@pytest.mark.parametrize("n,p,m,block,epilogue", SPLIT_SHAPES)
+def test_fast_emulation_is_the_tf32_rounded_product(n, p, m, block,
+                                                    epilogue):
+    """``fast=True``: the tile and V rounded to TF32 (as the kernel's fast
+    mode rounds them) and one f32 product, against float64 sums of the
+    same rounded operands within 2^-21 of max|Y| (f32 sums of at most 1024
+    terms); and TF32-level (above 2^-14 of max|Y|, under 2^-9) from the
+    precise emulation."""
+    rng = np.random.default_rng(n + m + 1)
+    X, V, init = (_t32(rng.normal(size=s)) for s in ((n, p), (n, m), (n, m)))
+    kw = dict(init=init, out_scale=-2.5) if epilogue else {}
+    got = tmv.kernel_matmul_split_plain(X, V, float(p), block=block,
+                                        fast=True, **kw)
+    from bigkrls_tpu_torch.ops.kernels import _sqdist
+    tile = tmv._tf32_round(torch.exp(-_sqdist(X, X) / float(p)))
+    want = tile.double() @ tmv._tf32_round(V).double()
+    if epilogue:
+        want = (want + init.double()) * -2.5
+    top = want.abs().max().item()
+    assert (got.double() - want).abs().max().item() <= 2.0 ** -21 * top
+    precise = tmv.kernel_matmul_split_plain(X, V, float(p), block=block,
+                                            **kw)
+    gap = (got - precise).abs().max().item() / top
+    assert 2.0 ** -14 < gap < 2.0 ** -9
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_split_emulation_cross_entry(fast):
+    """With ``Xb`` the emulation is the cross entry's: K(X, Xb)·V for V
+    with Xb's rows; with ``Xb = X`` it is the square product bit for bit,
+    and each output row is the square product's row of the stacked rows."""
+    rng = np.random.default_rng(3)
+    Xa, Xb = _t32(rng.normal(size=(37, 4))), _t32(rng.normal(size=(300, 4)))
+    V = _t32(rng.normal(size=(300, 9)))
+    got = tmv.kernel_matmul_split_plain(Xa, V, 4.0, Xb=Xb, fast=fast,
+                                        block=128)
+    assert got.shape == (37, 9)
+    same = tmv.kernel_matmul_split_plain(Xb, V, 4.0, Xb=Xb, fast=fast,
+                                         block=128)
+    assert torch.equal(same, tmv.kernel_matmul_split_plain(
+        Xb, V, 4.0, fast=fast, block=128))
+    both = torch.cat([Xa, Xb])
+    Vz = torch.cat([torch.zeros((37, 9)), V])
+    full = tmv.kernel_matmul_split_plain(both, Vz, 4.0, fast=fast,
+                                         block=337)
+    assert torch.allclose(got, full[:37], rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):
+        tmv.kernel_matmul_split_plain(Xa, V[:100], 4.0, Xb=Xb)
+
+
 # ---- the width rule -----------------------------------------------------
 
 # (N, P, m) -> 64-column units on a 132-SM card: the smoke's and the card

@@ -28,6 +28,36 @@ static __global__ void row_sqnorm_kernel(const float* __restrict__ X, int64_t ro
   r[i] = acc;
 }
 
+// The most devices a process launches the kernels on.
+constexpr int MAX_DEVICES = 64;
+
+// Let `kernel` take `bytes` of dynamic shared memory on the current device.
+// The attribute belongs to the function in one device's context, so what was
+// allowed is kept per device: `allowed` is the calling instantiation's own
+// table, one entry a device, raised only where a launch needs more. A
+// failure is returned and cleared (see launch_error).
+template <typename Kernel>
+inline cudaError_t allow_dynamic_shared(Kernel* kernel, int bytes, int (&allowed)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev < 0 || dev >= MAX_DEVICES)) return cudaErrorInvalidDevice;
+  if (e == cudaSuccess && bytes > allowed[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess) allowed[dev] = bytes;
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
+}
+
+// The launch's error: `e` where the launch call itself failed, else what
+// cudaGetLastError() holds. Either way the thread's last error is read and
+// so cleared: a failure left pending would be reported by the next launch
+// that succeeds, on whichever device.
+inline int launch_error(cudaError_t e) {
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
 static inline void launch_row_sqnorm(const float* X, int64_t rows, int64_t P, float* r,
                               cudaStream_t s) {
   const int nb = 256;

@@ -323,13 +323,9 @@ int launch(const float* A, const float* B, int64_t M, int64_t N, int ldx, int kc
   const int stages = ldx > kc ? 2 : 1;
   const int operands = stages * (BM + BN) * pitch, finished = BM * (BN + 1);
   const int bytes = (operands > finished ? operands : finished) * (int)sizeof(float);
-  static int allowed = 0;  // dynamic shared memory this instantiation was last allowed
-  if (bytes > allowed) {
-    cudaError_t e = cudaFuncSetAttribute(gauss_tile_kernel<BM, BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    allowed = bytes;
-  }
+  static int allowed[bigkrls::MAX_DEVICES] = {};  // per device: see allow_dynamic_shared
+  const cudaError_t e = bigkrls::allow_dynamic_shared(gauss_tile_kernel<BM, BN>, bytes, allowed);
+  if (e != cudaSuccess) return (int)e;
   gauss_tile_kernel<BM, BN><<<(unsigned)blocks, 2 * BM, bytes, s>>>(
       A, B, M, N, ldx, kc, pitch, sigma, out, symmetric_diag, mirror, tiles_n);
   return (int)cudaGetLastError();

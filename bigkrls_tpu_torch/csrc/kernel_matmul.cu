@@ -640,14 +640,9 @@ template <int NT, int MODE>
 int launch(const Operands& x, const float* V, int64_t ldv, const float* init, float* out, int P,
            int64_t M, float sigma, float out_scale, cudaStream_t s) {
   const int bytes = smem_bytes(NT, MODE, P);
-  static int allowed = 0;  // dynamic shared memory this instantiation was last allowed
-  cudaError_t e = cudaSuccess;
-  if (bytes > allowed) {
-    e = cudaFuncSetAttribute(kernel_matmul_kernel<NT, MODE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    allowed = bytes;
-  }
+  static int allowed[bigkrls::MAX_DEVICES] = {};  // per device: see allow_dynamic_shared
+  cudaError_t e = bigkrls::allow_dynamic_shared(kernel_matmul_kernel<NT, MODE>, bytes, allowed);
+  if (e != cudaSuccess) return (int)e;
   constexpr int MT = TILE * NT;
   constexpr unsigned PAIRED = NT == PAIR_NT ? 2 : 1;  // blocks per cluster, along y
   const unsigned col_blocks = (unsigned)((M + MT - 1) / MT);
@@ -665,7 +660,7 @@ int launch(const Operands& x, const float* V, int64_t ldv, const float* init, fl
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel_matmul_kernel<NT, MODE>, x.Xa, x.ra, x.Na, x.Xb, x.rb, x.Nb,
                          V, ldv, init, out, P, M, sigma, out_scale);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  return bigkrls::launch_error(e);
 }
 
 template <int MODE>

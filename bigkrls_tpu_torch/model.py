@@ -131,7 +131,9 @@ def _fit_impl(
         # on its first shard
         device = mesh.first_device
     device = torch.device(device)
-    timer = PhaseTimer(device=device)
+    # a mesh's phases end when every one of its cards has finished them
+    timer = PhaseTimer(device=mesh.local_devices if mesh is not None
+                       else device)
     fast = reduced(precision)
 
     if xlabs is None and hasattr(X, "columns"):

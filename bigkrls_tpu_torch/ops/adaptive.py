@@ -221,7 +221,10 @@ def _deflated_moments_sharded(K, vals, vecs):
     K_ij − (Q̂_i Λ̂) Q̂_jᵀ on that block's shard (the row slabs of a
     row-sharded Q̂ fetched from the shards that hold them), symmetrized
     against the transposed region (fetched alike), and R², R³ are block
-    products. Only Q̂'s slabs and R's blocks move, never a whole."""
+    products. Only Q̂'s slabs and R's blocks move, never a whole. A card
+    holds at most 7 blocks of its own size at once (K, R, R², and the
+    block product's accumulator, partial and two fetched operands):
+    R0 and the transposed regions are dropped once R is formed."""
     QL = rows_map(lambda v, lam: v * lam[None, :], vecs, vals)
     keys = K.keys()
     if isinstance(vecs, ShardedTensor):
@@ -240,8 +243,15 @@ def _deflated_moments_sharded(K, vals, vecs):
     tr = fetch_region(R0, [(R0.owner(k), c0, c1, r0, r1)
                            for k in keys
                            for r0, r1, c0, c1 in [R0.key_bounds(k)]])
-    R = map_blocks(R0, lambda i, j, blk, rows, cols: 0.5 * (
-        blk + tr[(cols[0], cols[1], rows[0], rows[1])].to(blk.device).T))
+
+    def symmetrize(i, j, blk, rows, cols):
+        t = tr[(cols[0], cols[1], rows[0], rows[1])].to(blk.device)
+        s = blk + t.T
+        del t
+        return s.mul_(0.5)
+
+    R = map_blocks(R0, symmetrize)
+    del R0, tr
     R2 = block_product(R, R)
     R3 = block_product(R2, R)
     return torch.stack([trace(R), inner(R, R), trace(R3), inner(R2, R2),

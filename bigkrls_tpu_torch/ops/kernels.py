@@ -22,6 +22,7 @@ turns the kernel into one (N, P)×(P, N) product plus broadcast adds and an
 """
 from __future__ import annotations
 
+import collections
 import functools
 import math
 
@@ -30,8 +31,9 @@ import torch
 from ..utils.precision import rank_p_ieee
 
 # launches of the CUDA kernel made through ``gauss_tile`` (CPU calls, which
-# run the plain version, do not count)
+# run the plain version, do not count), in all and by CUDA device index
 gauss_tile_launches = 0
+gauss_tile_launches_by_device: collections.Counter = collections.Counter()
 
 KERNEL_IMPLS = ("auto", "plain", "cuda")
 # the JAX package's names for the same choices: its XLA version is the
@@ -268,6 +270,7 @@ def _gauss_tile_cuda(A, B, sigma: float, symmetric_diag: bool, tile=None,
     if err != 0:
         raise RuntimeError(f"gauss_tile: CUDA launch failed with error {err}")
     gauss_tile_launches += 1
+    gauss_tile_launches_by_device[index] += 1
     return out
 
 

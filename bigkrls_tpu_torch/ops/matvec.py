@@ -58,6 +58,8 @@ kernel_matmul_cross_launches = 0
 # the same launches by shape and mode, (N, Nb, P, m, mode) with Nb = 0 for
 # the square entry: what work they did, for a bound on its time
 kernel_matmul_shapes: collections.Counter = collections.Counter()
+# and by CUDA device index
+kernel_matmul_launches_by_device: collections.Counter = collections.Counter()
 
 
 def _span(t):
@@ -367,6 +369,7 @@ def _kernel_matmul_cuda(X, V, sigma, init, out_scale, fast_accum, out,
                            f"{err}")
     kernel_matmul_launches += 1
     kernel_matmul_shapes[(n, nb, p, m, mode)] += 1
+    kernel_matmul_launches_by_device[X.device.index] += 1
     if Xb is not None:
         kernel_matmul_cross_launches += 1
     if mode == "fast":

@@ -30,6 +30,8 @@ log = logging.getLogger("bigkrls_tpu_torch")
 
 # the environment a launcher such as torchrun sets for every process
 _CLUSTER_ENV = ("MASTER_ADDR", "WORLD_SIZE", "RANK")
+# and the process's place among those of its host
+_LOCAL_ENV = ("LOCAL_RANK", "LOCAL_WORLD_SIZE")
 
 
 def is_initialized() -> bool:
@@ -38,10 +40,33 @@ def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def _launcher_device_ids():
+    """This process's share of the host's cards under a launcher
+    (``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``): per = visible cards // local
+    processes, and local rank r takes cards r·per … r·per + per − 1, as
+    ``jax.distributed.initialize`` gives each process its own devices.
+    None outside a launcher."""
+    if not all(k in os.environ for k in _LOCAL_ENV):
+        return None
+    rank, size = (int(os.environ[k]) for k in _LOCAL_ENV)
+    count = torch.cuda.device_count()
+    per = count // size
+    if per < 1 or not 0 <= rank < size:
+        raise RuntimeError(f"local rank {rank} of {size} processes cannot "
+                           f"take its own card of the {count} visible")
+    return range(rank * per, (rank + 1) * per)
+
+
 def _local_devices(device_type: str, local_device_ids=None):
+    """This process's devices: ``local_device_ids`` where given, else its
+    share of the cards under a launcher, else every visible card (one
+    ``cpu``, or ``len(local_device_ids)`` of them, for CPU shards)."""
     if device_type == "cuda":
-        ids = (range(torch.cuda.device_count()) if local_device_ids is None
-               else local_device_ids)
+        ids = local_device_ids
+        if ids is None:
+            ids = _launcher_device_ids()
+        if ids is None:
+            ids = range(torch.cuda.device_count())
         return [torch.device("cuda", int(i)) for i in ids]
     n = 1 if local_device_ids is None else len(local_device_ids)
     return [torch.device("cpu")] * n
@@ -66,7 +91,10 @@ def initialize_distributed(
     more than one process without an address, raises. ``device_type``
     ("cuda" or "cpu", default "cuda" when a card is visible) picks NCCL or
     gloo; ``local_device_ids`` names this process's CUDA devices (for
-    "cpu", its length is the number of virtual CPU shards)."""
+    "cpu", its length is the number of virtual CPU shards); without it a
+    process under a launcher takes its own share of the host's cards
+    (:func:`_launcher_device_ids`). Under NCCL the process's current
+    device is set to its first card before the group forms."""
     import torch.distributed as dist
     if device_type is None:
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
@@ -87,9 +115,9 @@ def initialize_distributed(
             "coordinator_address, num_processes and process_id")
     backend = "nccl" if device_type == "cuda" else "gloo"
     timeout = datetime.timedelta(seconds=timeout_s)
+    if backend == "nccl" and local:
+        torch.cuda.set_device(local[0])
     if explicit:
-        if backend == "nccl" and local:
-            torch.cuda.set_device(local[0])
         dist.init_process_group(backend=backend,
                                 init_method=f"tcp://{coordinator_address}",
                                 world_size=int(num_processes),
@@ -113,8 +141,9 @@ def _global_count(n_local: int) -> int:
 def global_mesh(shape: Optional[Sequence[int]] = None,
                 local_devices: Optional[Sequence] = None):
     """A 2-D ("i", "j") mesh over every process's devices, rank by rank.
-    ``local_devices`` are this process's (default: every visible CUDA
-    device, else one ``cpu``; CPU shards may repeat ``cpu``)."""
+    ``local_devices`` are this process's (default: its cards, as
+    :func:`initialize_distributed` took them, else one ``cpu``; CPU shards
+    may repeat ``cpu``)."""
     import torch.distributed as dist
 
     from .sharded import Mesh, make_mesh
@@ -138,12 +167,13 @@ def global_mesh(shape: Optional[Sequence[int]] = None,
 
 def process_info(local_devices: Optional[int] = None) -> dict:
     """This process's index, the process count and the device split (the
-    JAX keys). ``local_devices`` defaults to the visible CUDA devices
-    (one, the CPU, without a card)."""
+    JAX keys). ``local_devices`` defaults to this process's cards, as
+    :func:`initialize_distributed` took them (one, the CPU, without a
+    card)."""
     import torch.distributed as dist
     n_local = local_devices
     if n_local is None:
-        n_local = torch.cuda.device_count() if torch.cuda.is_available() \
+        n_local = len(_local_devices("cuda")) if torch.cuda.is_available() \
             else 1
     init = is_initialized()
     return {

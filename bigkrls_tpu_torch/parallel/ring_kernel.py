@@ -62,8 +62,14 @@ def _rotate(blocks, mesh: Mesh):
         return [tuple(t.to(mesh.devices[k]) for t in blocks[(k + 1) % d])
                 for k in range(d)]
     import torch.distributed as dist
+
+    from .distributed import comm_device
+    # NCCL takes the tensors of one card a process: its current one. A
+    # block that leaves or reaches another of the process's cards goes
+    # through that card.
+    comm = comm_device()
     me = _rank()
-    ops, new = [], [None] * d
+    ops, new, landed = [], [None] * d, []
     for k in range(d):
         src = (k + 1) % d
         owner_k, owner_src = int(mesh.processes[k]), int(mesh.processes[src])
@@ -71,13 +77,18 @@ def _rotate(blocks, mesh: Mesh):
             new[k] = tuple(t.to(mesh.devices[k]) for t in blocks[src])
         elif owner_k == me:
             # same shapes as this shard's own tuple: ring blocks are equal
-            new[k] = tuple(torch.empty_like(t) for t in blocks[k])
+            new[k] = tuple(torch.empty_like(t, device=comm)
+                           for t in blocks[k])
             ops += [dist.P2POp(dist.irecv, t, owner_src) for t in new[k]]
+            landed.append(k)
         elif owner_src == me:
-            ops += [dist.P2POp(dist.isend, t, owner_k) for t in blocks[src]]
+            ops += [dist.P2POp(dist.isend, t.to(comm), owner_k)
+                    for t in blocks[src]]
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    for k in landed:
+        new[k] = tuple(t.to(mesh.devices[k]) for t in new[k])
     return new
 
 

@@ -176,6 +176,13 @@ class Mesh:
                 return d
         raise ValueError("mesh holds no device of this process")
 
+    @property
+    def local_devices(self):
+        """This process's devices of the mesh, each once, in mesh order."""
+        return list(dict.fromkeys(
+            d for d, p in zip(self.devices.flat, self.processes.flat)
+            if int(p) == _rank()))
+
     def __repr__(self):
         return (f"Mesh({dict(zip(self.axis_names, self.shape))}, "
                 f"devices={sorted({str(d) for d in self.devices.flat})})")
@@ -828,7 +835,9 @@ def block_product(A: ShardedTensor, B: ShardedTensor) -> ShardedTensor:
     Each block's owner fetches the blocks of its block row of A, and,
     column stripe by column stripe, the regions of B it lacks
     (point-to-point), so no process holds more than its block rows of A
-    and one stripe of B."""
+    and one stripe of B. A block's device holds, beside what it holds
+    already, its accumulator, one partial and the two operands of that
+    partial (copies where they lie on another device)."""
     shards = [[None] * len(A.col_bounds) for _ in A.row_bounds]
     arows = fetch_region(A, [(A.owner(key), *A.row_bounds[key[0]], k0, k1)
                              for key in A.keys() for k0, k1 in A.col_bounds])
@@ -844,8 +853,11 @@ def block_product(A: ShardedTensor, B: ShardedTensor) -> ShardedTensor:
             out = None
             for k0, k1 in A.col_bounds:
                 a = arows[(*A.row_bounds[i], k0, k1)].to(dev)
-                part = a @ regions[(k0, k1, c0, c1)].to(dev)
-                out = part if out is None else out + part
+                b = regions[(k0, k1, c0, c1)].to(dev)
+                part = a @ b
+                del a, b
+                out = part if out is None else out.add_(part)
+                del part
             shards[i][j] = out
         del regions
     return ShardedTensor(A.mesh, "block", A.shape, shards, A.dtype)

@@ -4,26 +4,38 @@ profiler trace (``trace``), ported from ``bigkrls_tpu/utils/progress.py``.
 PyTorch returns from a CUDA call before the card has run it, so a host
 clock read without a synchronize books queued work to whichever phase
 happens to wait for it next. ``PhaseTimer.mark`` therefore synchronizes
-the fit's CUDA device before reading the clock.
+the fit's CUDA devices (every card of a mesh, each once) before reading
+the clock.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
 
 class PhaseTimer:
-    def __init__(self, device: Optional[torch.device] = None):
-        self.device = torch.device(device) if device is not None else None
+    """``device`` is the fit's device, or the devices of its mesh (they may
+    repeat: virtual shards); ``mark`` synchronizes each distinct CUDA
+    device among them."""
+
+    def __init__(self, device: Union[None, torch.device, str,
+                                     Sequence] = None):
+        if device is None:
+            device = []
+        elif isinstance(device, (torch.device, str)):
+            device = [device]
+        cuda = [torch.device(d) for d in device
+                if torch.device(d).type == "cuda"]
+        self.devices = list(dict.fromkeys(cuda))
         self.phases: List[Dict] = []
         self._last = time.perf_counter()
 
     def _sync(self) -> None:
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in self.devices:
+            torch.cuda.synchronize(d)
 
     def mark(self, name: str) -> None:
         """Record the time since the previous mark (or construction) as

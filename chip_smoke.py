@@ -74,7 +74,12 @@
    their warm times and peak memory are printed beside a single-device
    warm fit's of the same run; a full-spectrum fit by block Jacobi at
    N=1024 held against the gathered ``eigh``; a one-rank NCCL process
-   group;
+   group, joined once with explicit arguments and once through a
+   launcher's environment (``LOCAL_RANK=0``, ``LOCAL_WORLD_SIZE=1``,
+   ``env://``); where the machine has 2 or more cards, the N=3106 fit
+   over a mesh of distinct cards (one K1 launch on each), held against
+   the single-device fit and compared bit for bit with the same fit over
+   virtual shards;
 10. holds K2 against its plain version at the shapes the benchmark's
     run below gives it and ``check_k2`` does not (N=100,000 at m=540 and
     22, the fast-power fit's 3780-wide Ritz product); then runs the port's
@@ -87,7 +92,8 @@
     to three digits, each streaming fit's K2 launches (8, 6 of them fast
     in the fast-power fit) and the N=100,000 product's own check against
     the plain product;
-11. prints one JSON line for the kernels, then the result line.
+11. prints one JSON line for the kernels (with the cards each ran on),
+    then the result line.
 
 Any failed check exits non-zero without the result line. No JAX is used.
 """
@@ -1532,6 +1538,94 @@ def nccl_group(failures):
         dist.destroy_process_group()
     if not ok or distributed.is_initialized():
         failures.append("one-rank NCCL group")
+    nccl_group_launcher(failures)
+
+
+def nccl_group_launcher(failures):
+    """The one-rank NCCL group joined as under a launcher such as torchrun
+    (``env://`` with ``LOCAL_RANK=0``, ``LOCAL_WORLD_SIZE=1``): the process
+    takes every card, the first as its current device."""
+    import socket
+    import torch.distributed as dist
+    from bigkrls_tpu_torch.parallel import distributed
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        n = distributed.initialize_distributed()
+        try:
+            info = distributed.process_info()
+            mesh = distributed.global_mesh()
+            backend = dist.get_backend()
+            ok = (backend == "nccl" and torch.cuda.current_device() == 0
+                  and n == info["local_devices"] == torch.cuda.device_count()
+                  and mesh.size == n)
+            print(f"one-rank NCCL group through the launcher's environment: "
+                  f"backend {backend}, {info}, mesh {mesh}: ok={ok}",
+                  flush=True)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if not ok or distributed.is_initialized():
+        failures.append("one-rank NCCL group through the launcher")
+
+
+def cards_fit(bt, m_dense, virtual_mesh, failures):
+    """With 2 or more cards: the N=3106 fit over a mesh of distinct cards
+    (2×2 over four, else 1×D), one K1 launch on each card, held against
+    the single-device fit; bit for bit against the same fit over virtual
+    shards of cuda:0 (printed), peer access between the cards printed
+    first. Returns the record, or None on one card."""
+    from collections import Counter
+
+    from bigkrls_tpu_torch.ops import kernels
+    from bigkrls_tpu_torch.parallel.sharded import make_mesh, \
+        record_gathers
+    count = min(torch.cuda.device_count(), MESH_SHARDS)
+    if count < 2:
+        print("one card: the fit over distinct cards is not run", flush=True)
+        return None
+    peers = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+             for i in range(count) for j in range(count) if i != j}
+    print(f"peer access: {json.dumps(peers)}", flush=True)
+    mesh = make_mesh(devices=[torch.device("cuda", i) for i in range(count)])
+    y, X = smoke_data()
+    before = Counter(kernels.gauss_tile_launches_by_device)
+    t0 = time.perf_counter()
+    with record_gathers() as log:
+        m = bt.fit(y, X, mesh=mesh, noisy=False)
+    for i in range(count):
+        torch.cuda.synchronize(i)
+    cold = time.perf_counter() - t0
+    by_card = dict(Counter(kernels.gauss_tile_launches_by_device) - before)
+    m_virtual = bt.fit(y, X, mesh=virtual_mesh, noisy=False)
+    same = all(np.array_equal(getattr(m, f), getattr(m_virtual, f))
+               for f in ("coeffs", "yfitted", "avgderivatives"))
+    print(f"dense fit N={N} P={P} over {mesh}: eig_path {m.eig_path}, "
+          f"cold {cold:.3f} s, K1 launches by card {by_card}; bit-equal to "
+          f"the fit over virtual shards of cuda:0: {same}", flush=True)
+    if by_card != {i: 1 for i in range(count)}:
+        failures.append(f"dense fit over cards: K1 launches {by_card}")
+    if not (m.eig_path or "").startswith("adaptive-krylov"):
+        failures.append(f"dense fit over cards took {m.eig_path!r}")
+    record = {"cards": count, "cold_s": cold, "k1_by_card": by_card,
+              "bit_equal_to_virtual": same,
+              "gathers": gather_budget("dense fit over cards", log, N,
+                                       failures)}
+    print("dense fit over cards vs the single-device card fit:")
+    compare(m, m_dense, bt.predict(m, X[:10], se_pred=True),
+            bt.predict(m_dense, X[:10], se_pred=True), y, failures)
+    return record
 
 
 def mesh_phase(bt, m_dense, m_stream, warm_stream_s, failures):
@@ -1545,10 +1639,12 @@ def mesh_phase(bt, m_dense, m_stream, warm_stream_s, failures):
                                             warm_stream_s, failures)
     k1_mesh, dense_warm, dense_rec = dense_mesh_fit(bt, mesh, m_dense,
                                                     failures)
+    cards = cards_fit(bt, m_dense, mesh, failures)
     jacobi_fit(bt, mesh, failures)
     nccl_group(failures)
     print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    print(json.dumps({"mesh_fits": {"ring": ring_rec, "dense": dense_rec}}))
+    print(json.dumps({"mesh_fits": {"ring": ring_rec, "dense": dense_rec,
+                                    "cards": cards}}))
     return {"k1": {"dense_mesh_fit_blocks": k1_mesh},
             "k2": {"ring_fit_cross": k2_ring}, "cross": cross,
             "ring_warm_s": ring_warm, "dense_mesh_warm_s": dense_warm}
@@ -1688,7 +1784,7 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 1
     import bigkrls_tpu_torch as bt
-    from bigkrls_tpu_torch.ops import _build, kernels
+    from bigkrls_tpu_torch.ops import _build, kernels, matvec
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
     import k1_oracle
 
@@ -1785,6 +1881,8 @@ def main() -> int:
         "source": "bigkrls_tpu_torch/csrc/gauss_kernel.cu",
         "replaces": "bigkrls_tpu/ops/kernels.py:87",
         "launches": launches, "library_ms": None,
+        "cards": [f"cuda:{i}" for i in
+                  sorted(kernels.gauss_tile_launches_by_device)],
         "workflow_launches": wf["k1"], "mesh_launches": mp["k1"],
         "constant_memory_launches": cm.pop("constant_memory_k1_launches"),
         **k1}, {
@@ -1792,6 +1890,8 @@ def main() -> int:
         "source": "bigkrls_tpu_torch/csrc/kernel_matmul.cu",
         "replaces": "bigkrls_tpu/ops/matvec.py:139",
         "launches": k2_launches, "library_ms": None,
+        "cards": [f"cuda:{i}" for i in
+                  sorted(matvec.kernel_matmul_launches_by_device)],
         "workflow_launches": wf["k2"], "mesh_launches": mp["k2"],
         "bench_launches": {r["metric"]: r["k2_launches"] for r in bench
                            if r.get("k2_launches") is not None},

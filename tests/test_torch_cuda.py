@@ -570,3 +570,51 @@ def test_adaptive_resume_bit_equal_on_card(cuda, tmp_path):
     assert (m1.lambda_, m1.looe, m1.neffective) == \
         (m2.lambda_, m2.looe, m2.neffective)
     assert np.array_equal(m1.coeffs, m2.coeffs)
+
+
+def test_kernels_launch_on_every_card(cuda):
+    """K1 (symmetric and cross) and K2 (precise, fast and the cross entry)
+    on each visible card in turn, cuda:0 first: each within its plain
+    version's tolerance on that card, bit-equal to cuda:0's result, and
+    counted on that card. Each kernel instantiation allows its dynamic
+    shared memory (over 48 KiB) per device; allowed once per process, it
+    could not launch on a second card. With one card, cuda:0 alone."""
+    from bigkrls_tpu_torch.bench import K2_FAST_TOL, k2_tol
+    rng = np.random.default_rng(11)
+    host = [rng.normal(size=s) for s in ((3106, 67), (517, 67), (8192, 20),
+                                         (8192, 540), (4096, 20),
+                                         (4096, 540))]
+    tols = {"k1 sym": (1e-5, False), "k1 cross": (1e-5, False),
+            "k2": (k2_tol(8192), True), "k2 fast": (K2_FAST_TOL, True),
+            "k2 cross": (k2_tol(4096), True)}
+    first = None
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        a, b, x, v, xb, vb = (torch.as_tensor(h, dtype=torch.float32,
+                                              device=dev) for h in host)
+        k1_before = kernels.gauss_tile_launches_by_device[i]
+        k2_before = matvec.kernel_matmul_launches_by_device[i]
+        got = {"k1 sym": kernels.gauss_tile(a, a, 67.0, True),
+               "k1 cross": kernels.gauss_tile(b, a, 67.0, False),
+               "k2": matvec.kernel_matmul(x, v, 20.0),
+               "k2 fast": matvec.kernel_matmul(x, v, 20.0, fast_accum=True),
+               "k2 cross": matvec.kernel_matmul_cross(x, xb, vb, 20.0)}
+        want = {"k1 sym": kernels.gauss_tile_plain(a, a, 67.0, True),
+                "k1 cross": kernels.gauss_tile_plain(b, a, 67.0, False),
+                "k2": matvec.kernel_matmul_plain(x, v, 20.0),
+                "k2 fast": matvec.kernel_matmul_plain(x, v, 20.0,
+                                                      fast_accum=True),
+                "k2 cross": matvec.kernel_matmul_plain(x, vb, 20.0, Xb=xb)}
+        torch.cuda.synchronize(dev)
+        assert kernels.gauss_tile_launches_by_device[i] == k1_before + 2
+        assert matvec.kernel_matmul_launches_by_device[i] == k2_before + 3
+        for name, (tol, relative) in tols.items():
+            g, w = got[name], want[name]
+            assert g.device == dev, name
+            scale = w.abs().max().item() if relative else 1.0
+            assert (g - w).abs().max().item() <= tol * scale, (name, dev)
+        if first is None:
+            first = {k: g.cpu() for k, g in got.items()}
+        else:
+            for k, g in got.items():
+                assert torch.equal(g.cpu(), first[k]), (k, dev)

@@ -10,7 +10,10 @@ in host numpy as exact integer bisections over its unit-step loops:
   q = 1-based argmin |λₖ − λ₁/1000|.
 
 Both consume the FULL eigenvalue list; the LOO evaluations use the
-truncated system. The search itself is ``ops.solve.golden_solve``.
+truncated system. The search runs as the JAX package runs it: on the
+device in the fit's dtype (``ops.solve.golden_search_device``, one host
+read per chunk of steps), or, with ``device_loop=False`` or ``noisy``, as
+the host loop in python floats (``ops.solve.golden_section``).
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from .ops.solve import golden_solve
+from .ops.solve import (golden_search_device, golden_section,
+                        golden_solve, loo_solver, solve_precompute)
 from .types import Eigensystem
 
 _EPS = 2.220446049250313e-16  # R's .Machine$double.eps
@@ -84,12 +88,15 @@ def _resolve_bounds(eig: Eigensystem, n: int, L, U, tol):
 def lambda_search_solve(eig: Eigensystem, y_std, L: Optional[float] = None,
                         U: Optional[float] = None,
                         tol: Optional[float] = None):
-    """Bounds + golden search + the final spectral solve; returns
-    ``(lam, Le, coeffs)`` with ``Le``/``coeffs`` on the device."""
+    """Bounds + golden search + the final spectral solve, on the device
+    like the JAX package's ``ops/adaptive._golden_solve``; returns ``(lam,
+    Le, coeffs)`` with ``Le``/``coeffs`` on the device and ``lam`` the
+    number the coefficients were solved at (a float32 number in float32).
+    """
     L, U, tol = _resolve_bounds(eig, int(y_std.shape[0]), L, U, tol)
     lam, Le, coeffs, _ = golden_solve(eig.vectors, eig.values, y_std, L, U,
                                       tol)
-    return lam, Le, coeffs
+    return float(lam), Le, coeffs
 
 
 def lambda_search(eig: Eigensystem, y_std, L: Optional[float] = None,
@@ -100,14 +107,20 @@ def lambda_search(eig: Eigensystem, y_std, L: Optional[float] = None,
     y, Eigenobject, tol, noisy)``; ``noisy`` logs every bracket in the
     reference's format.
 
-    ``device_loop`` is accepted for the JAX package's signature and
-    changes nothing here: the JAX package chooses between a search loop
-    compiled into one device program and a host loop, and the port has
-    only the host loop (``ops/solve.golden_solve``), which evaluates each
-    bracket on the device and gives the same λ* either way."""
+    As in the JAX package, ``device_loop`` without ``noisy`` runs the
+    search on the device in the fit's dtype
+    (``ops/solve.golden_search_device``); ``device_loop=False`` or
+    ``noisy`` run the host loop in python floats, one LOO read per step
+    (``ops/solve.golden_section``)."""
     L, U, tol = _resolve_bounds(eig, int(y_std.shape[0]), L, U, tol)
-    lam = golden_solve(eig.vectors, eig.values, y_std, L, U, tol,
-                       log=log if noisy else None)[0]
+    Qty, Q2 = solve_precompute(eig.vectors, y_std)
+    if device_loop and not noisy:
+        lam, _, _ = golden_search_device(eig.vectors, eig.values, Qty, Q2,
+                                         L, U, tol)
+        return float(lam)
+    loo = loo_solver(eig.vectors, eig.values, Qty, Q2)
+    lam, _ = golden_section(lambda x: float(loo(x)[0]), L, U, tol,
+                            log=log if noisy else None)
     if noisy:
         log(f"lambda = {lam:.5f}")
     return float(lam)

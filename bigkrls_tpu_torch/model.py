@@ -30,10 +30,9 @@ import torch
 from . import checkpoint as ckpt
 from .lambda_search import lambda_search, lambda_search_solve
 from .ops.adaptive import postkernel_adaptive, resume_adaptive
-from .ops import matvec
+from .ops import fused, matvec
 from .ops.effects import derivatives_all, derivatives_streaming
 from .ops.eig import _NAN_EIG_MSG, eigensystem, eigensystem_streaming
-from .ops.fused import postkernel_device
 from .ops.kernels import kernel_matrix
 from .ops.solve import solve_for_c
 from .ops.stats import neffective_acf, neffective_spectral, standardize
@@ -349,9 +348,19 @@ def _fit_impl(
         if noisy:
             log(f"Steps 2-4: eigendecomposition + lambda search + solve "
                 f"(t+{time.time() - t0:.1f}s)")
-        vals, vecs, lk, lam_f, Le_f, coeffs_f, _spec, iters = \
-            postkernel_device(K, y_std, eigtrunc, tol,
-                              log=log if noisy else None)
+        # the heartbeat ticks only fits long enough to need progress, as
+        # the JAX fit gates it; its sink is this fit's log, released after
+        heartbeat = noisy and n > fused.HEARTBEAT_MIN_N
+        if heartbeat:
+            fused.set_heartbeat_log(log)
+        try:
+            vals, vecs, lk, lam_f, Le_f, coeffs_f, _spec, iters = \
+                fused.postkernel_device(K, y_std, eigtrunc, tol,
+                                        log=log if noisy else None,
+                                        heartbeat=heartbeat)
+        finally:
+            if heartbeat:
+                fused.set_heartbeat_log(print)
         if torch.isnan(vals).any():
             raise ValueError(_NAN_EIG_MSG)
         eig = Eigensystem(values_full=vals, vectors=vecs[:, :lk],

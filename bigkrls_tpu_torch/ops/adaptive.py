@@ -366,8 +366,9 @@ def _adaptive_fused(K, y_std, k: int, iters: int, eigtrunc: float,
     """The adaptive post-kernel region: block-Krylov top-k, deflated tail
     moments, the device quadrature, completed-spectrum bounds, golden
     search and solve, with lastkeeper as a mask. Returns the JAX
-    program's 13 outputs; ``L``/``U`` stay device scalars so the caller
-    can hold them against the f64 host bounds."""
+    program's 13 outputs, every one on the device (``it`` a host int):
+    the golden search reads only its chunks' stopping flags, and the
+    caller fetches the rest in one copy."""
     n = K.shape[0]
     dt = y_std.dtype
     vals, vecs, moments = _krylov_moments(K, k, iters, extra)
@@ -382,8 +383,8 @@ def _adaptive_fused(K, y_std, k: int, iters: int, eigtrunc: float,
     L = _lower_bound_completed_device(vals, theta, w)
     U = _upper_bound_completed_device(vals, theta, w, n)
 
-    lam, Le, coeffs, it = golden_solve(vecs, vals, y_std, float(L),
-                                       float(U), tol, mask=mask)
+    lam, Le, coeffs, it = golden_solve(vecs, vals, y_std, L, U, tol,
+                                       mask=mask)
     spectrum = mask / (vals + lam) ** 2
     return (vals, vecs, moments, lastkeeper, theta, w, L, U, lam, Le, coeffs,
             spectrum, it)
@@ -425,10 +426,16 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
     k = min(_round64(max(64, n / 16.0)), kcap)
 
     for _attempt in range(3):
-        (vals, vecs, moments, lk_d, _theta_d, _w_d, L_d, U_d, lam, Le_d,
+        (vals, vecs, moments, lk_d, _theta_d, _w_d, L_d, U_d, lam_d, Le_d,
          coeffs_d, spectrum_d, _it) = _adaptive_fused(
             K, y_std, k, iters, eigtrunc, tol, extra)
-        vals_np = vals.detach().cpu().double().numpy()
+        # one copy for every number the host checks (the JAX caller's one
+        # round trip): values, moments, L, U, λ*, Le, lastkeeper
+        host = torch.cat([vals, moments, torch.stack(
+            [L_d, U_d, lam_d, Le_d, lk_d.to(vals.dtype)])]).double()
+        host = host.detach().cpu().numpy()
+        vals_np, m_np = host[:k], host[k:k + 5]
+        L_dev, U_dev, lam, Le, lk = host[k + 5:].tolist()
         if np.any(np.isnan(vals_np)):
             raise ValueError(_NAN_EIG_MSG)
         plan, aux = _capture_plan(vals_np, eigtrunc, k, kcap, n=n,
@@ -446,7 +453,6 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
         return None
 
     # exact f64 bounds from the same values/moments (the oracle)
-    m_np = moments.detach().cpu().double().numpy()
     tail_m = np.concatenate([[float(n - k)], np.maximum(m_np, 0.0)])
     theta, w = _tail_atoms(tail_m)
     L = _lower_bound_completed(vals_np, theta, w)
@@ -465,12 +471,11 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
     # accept the working-precision solve only if its bounds picked the same
     # bisection steps as the f64 oracle (steps are 0.05 / 1.0, far outside
     # rounding) and its lastkeeper agrees
-    L_dev, U_dev = float(L_d), float(U_d)
     same_bounds = (abs(L_dev - L) <= 1e-5 * max(1.0, abs(L))
                    and abs(U_dev - U) <= 1e-5 * max(1.0, abs(U))
-                   and int(lk_d) == lastkeeper)
+                   and int(lk) == lastkeeper)
     if same_bounds:
-        return out, lam, float(Le_d), coeffs_d, spectrum_d[:lastkeeper]
+        return out, lam, Le, coeffs_d, spectrum_d[:lastkeeper]
     if noisy:
         log("  adaptive eig: working-precision bounds differ from the "
             "f64 oracle; re-running golden+solve with exact bounds")
@@ -481,11 +486,13 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
 
 def resume_adaptive(out: AdaptiveEig, y_std, tol: float):
     """Golden search + spectral solve from a stored :class:`AdaptiveEig`
-    (its vectors a tensor or row-sharded, as ``y_std``); returns ``(lam,
-    Le, coeffs)``."""
+    (its vectors a tensor or row-sharded, as ``y_std``), on the device as
+    JAX's resume re-runs ``_golden_solve``; returns ``(lam, Le, coeffs)``
+    with λ* and Le read in one copy."""
     lam, Le, coeffs, _ = golden_solve(out.eig.vectors, out.eig.values,
                                       y_std, out.L, out.U, tol)
-    return lam, float(Le), coeffs
+    lam, Le = torch.stack([lam, Le]).tolist()
+    return lam, Le, coeffs
 
 
 def _head(vecs, lastkeeper: int, mesh):

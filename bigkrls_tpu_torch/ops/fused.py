@@ -3,9 +3,12 @@ search → spectral solve.
 
 Port of ``bigkrls_tpu/ops/fused.py::postkernel_device``, the route for
 N < 2048 and the adaptive route's fallback. JAX runs it as one XLA
-program; PyTorch runs eagerly, so the golden-section loop is a host loop
-with one scalar read per iteration (``ops.solve.golden_solve``), and the
-JAX ``io_callback`` heartbeat is replaced by logging from that loop.
+program; PyTorch runs it eagerly on the device, the golden-section loop
+in chunks of steps with one host read each (``ops.solve.golden_solve``).
+The JAX program's heartbeat (an ordered ``io_callback`` per iteration)
+is ticked from those reads: every ``HEARTBEAT_EVERY``-th iteration, into
+the sink a fit registers (:func:`set_heartbeat_log`), for fits above
+``HEARTBEAT_MIN_N`` rows (``model.fit`` gates it), at no extra read.
 
 Truncation keeps the JAX program's mask form: the spectral filter
 ``1/(λₖ+λ)`` is multiplied by a mask zeroing k ≥ lastkeeper, which is
@@ -22,6 +25,29 @@ import torch
 from .solve import golden_solve
 
 _EPS = 2.220446049250313e-16  # R's .Machine$double.eps
+
+HEARTBEAT_EVERY = 4
+HEARTBEAT_MIN_N = 8192
+_heartbeat_log = [print]
+
+
+def set_heartbeat_log(log) -> None:
+    """Register the sink for heartbeat ticks (the fit's ``log=`` arg)."""
+    _heartbeat_log[0] = log
+
+
+def _heartbeat():
+    """``progress`` for the golden search: a tick line for every
+    ``HEARTBEAT_EVERY``-th iteration a chunk passed."""
+    last = 0
+
+    def progress(it: int):
+        nonlocal last
+        first = (last // HEARTBEAT_EVERY + 1) * HEARTBEAT_EVERY
+        for i in range(first, it + 1, HEARTBEAT_EVERY):
+            _heartbeat_log[0](f"  golden-section iteration {i}")
+        last = it
+    return progress
 
 
 def _sum_filter(values, lam):
@@ -70,11 +96,14 @@ def _lower_bound_device(values):
 
 
 def postkernel_device(K, y_std, eigtrunc: float, tol: float,
-                      log: Optional[Callable[[str], None]] = None):
+                      log: Optional[Callable[[str], None]] = None,
+                      heartbeat: bool = False):
     """Returns ``(values, vectors, lastkeeper, lam, Le, coeffs, spectrum,
     iters)`` like the JAX function: ``vectors`` is the full eigenbasis,
     ``spectrum`` the masked ``1/(λₖ+λ)²`` filter, ``lastkeeper`` and
-    ``lam`` host numbers. ``log`` receives the golden-section brackets."""
+    ``lam`` host numbers (one read). ``log`` receives the golden-section
+    brackets; ``heartbeat`` ticks the iterations into the registered
+    sink."""
     from .eig import _eigh_desc
 
     n = K.shape[0]
@@ -90,9 +119,10 @@ def postkernel_device(K, y_std, eigtrunc: float, tol: float,
     U = _upper_bound_device(values, n)
     L = torch.clamp_min(_lower_bound_device(values), _EPS)
 
-    lam, Le, coeffs, it = golden_solve(vectors, values, y_std, float(L),
-                                       float(U), float(tol), mask=mask,
-                                       log=log)
+    lam, Le, coeffs, it = golden_solve(
+        vectors, values, y_std, L, U, tol, mask=mask, log=log,
+        progress=_heartbeat() if heartbeat else None)
     spectrum = mask / (values + lam) ** 2
-    return (values, vectors, int(lastkeeper), lam, Le, coeffs, spectrum,
-            it)
+    lk, lam_h = torch.stack([lastkeeper.to(torch.float64),
+                             lam.to(torch.float64)]).tolist()
+    return (values, vectors, int(lk), lam_h, Le, coeffs, spectrum, it)

@@ -18,7 +18,15 @@
    on a seeded low-rank design whose kernel spectrum decays like the
    election data's, so the fit takes the adaptive route through K1; then
    ``summary`` and ``predict(se_pred=True)``; checks the launch count, and
-   holds the result against the port's own float64 fit on the CPU;
+   holds the result against the port's own float64 fit on the CPU; then
+   the golden-section λ search as a device loop on that data: a warm fit
+   with every chunk of the loop under ``set_sync_debug_mode("error")``,
+   the synchronising calls of one warm fit with the device loop and with
+   the host loop in its place (the golden loop's at most ⌈iterations /
+   T⌉ + 1), the two loops on the fit's own basis (λ* within 1e-6, both
+   within §2 of the CPU fit), the adaptive region's time each way, and
+   the bench's three post-kernel metrics (min and median of 9;
+   ``tools/golden_loop.py``);
 5. holds the kernel-free product kernel (K2) against its plain PyTorch
    version on the card at the streaming fit's shapes and at ragged ones:
    precise mode (the split-TF32 tensor-core product), the
@@ -99,6 +107,7 @@ Any failed check exits non-zero without the result line. No JAX is used.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1764,6 +1773,143 @@ def bench_phase(card, failures):
     return recs
 
 
+DL_LAMBDA_REL = 1e-6     # device loop vs host loop on the card, same basis
+DL_LE_REL = 1e-5
+DL_COEFFS_REL = 1e-4     # of max|c|
+
+
+@contextlib.contextmanager
+def strict_chunks(record):
+    """Every chunk of the golden search's device loop under
+    ``set_sync_debug_mode("error")``: a host read inside one raises.
+    ``record`` receives (iterations, chunks) of each search."""
+    from bigkrls_tpu_torch.ops import solve
+    chunk, search = solve.golden_chunk, solve.golden_search_device
+
+    def strict(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return chunk(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def recorded(*a, **kw):
+        out = search(*a, **kw)
+        record.append(out[1:])
+        return out
+
+    solve.golden_chunk, solve.golden_search_device = strict, recorded
+    try:
+        yield
+    finally:
+        solve.golden_chunk, solve.golden_search_device = chunk, search
+
+
+def device_loop_phase(bt, m_cpu, smi, failures):
+    """The golden-section λ search as a device loop, on the default fit's
+    data (N=3106, P=67, f32, the adaptive route at k=256): no host read
+    inside a chunk of a warm fit; the synchronising calls of one warm fit
+    (``torch.cuda.set_sync_debug_mode("warn")``, by file and line) with
+    the device loop and with the host loop in its place, the golden
+    loop's at most ⌈iterations / T⌉ + 1; the device loop against the
+    host loop on the fit's own masked basis (λ*, Le, coefficients, both
+    within §2 of the CPU f64 fit), the region's time each way, and the
+    bench's three post-kernel metrics, min and median of 9."""
+    import golden_loop as gl
+    from bigkrls_tpu_torch import bench
+    from bigkrls_tpu_torch.ops import solve
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    y, X, K, yd = gl.default_data(dev)
+    T = solve.GOLDEN_CHUNK
+    out = {"card": smi, "T": T}
+
+    searches = []
+    try:
+        with strict_chunks(searches):
+            bt.fit(y, X, device="cuda", noisy=False)
+        check(failures, "device loop: no host read inside a chunk", True)
+    except RuntimeError as e:
+        check(failures, "device loop: no host read inside a chunk", False,
+              str(e)[:300])
+    it, chunks = searches[-1] if searches else (None, None)
+    out.update(iterations=it, chunks=chunks, searches=len(searches))
+    print(f"device loop: a warm default fit, {len(searches)} search(es), "
+          f"{it} golden-section iterations in {chunks} chunks of T={T}, "
+          f"no read inside a chunk", flush=True)
+
+    with gl.count_syncs() as reads:
+        bt.fit(y, X, device="cuda", noisy=False)
+    with gl.host_loop_in_regions(), gl.count_syncs() as reads_host:
+        bt.fit(y, X, device="cuda", noisy=False)
+    loop_reads = sum(n for site, n in reads["by_site"].items()
+                     if site.startswith("solve.py:"))
+    out["reads"] = {"device_loop": reads, "host_loop": reads_host,
+                    "golden_loop": loop_reads}
+    print(f"synchronising calls of one warm default fit "
+          f"(set_sync_debug_mode; the phase timer's synchronize calls "
+          f"are not among them): device loop "
+          f"{reads['total']} (golden loop {loop_reads}), host loop in its "
+          f"place {reads_host['total']}", flush=True)
+    print(f"  device loop by site: {json.dumps(reads['by_site'])}")
+    print(f"  host loop by site: {json.dumps(reads_host['by_site'])}")
+    if it is not None:
+        limit = -(-it // T) + 1
+        check(failures, "golden loop reads <= ceil(iterations/T) + 1",
+              loop_reads <= limit, f"{loop_reads} (limit {limit})")
+
+    basis = gl.loop_basis(K, yd)
+    lam_d, Le_d, c_d, it_d = solve.golden_solve(**basis)
+    lam_h, Le_h, c_h, it_h = gl.host_golden_solve(**basis)
+    d = {"lambda": [float(lam_d), float(lam_h)], "iterations": [it_d, it_h],
+         "lambda_rel": rel(float(lam_d), float(lam_h)),
+         "Le_rel": rel(float(Le_d), float(Le_h)),
+         "coeffs_rel": float((c_d - c_h).abs().max() / c_h.abs().max()),
+         "vs_cpu_f64": [rel(float(lam_d), m_cpu.lambda_),
+                        rel(float(lam_h), m_cpu.lambda_)]}
+    out["device_vs_host"] = d
+    print(f"device vs host loop, the fit's masked basis: lambda "
+          f"{d['lambda']}, iterations {d['iterations']}, lambda rel "
+          f"{d['lambda_rel']:.3e} (limit {DL_LAMBDA_REL}), Le rel "
+          f"{d['Le_rel']:.3e}, coeffs {d['coeffs_rel']:.3e} of max; vs the "
+          f"CPU f64 fit {d['vs_cpu_f64'][0]:.3e} / {d['vs_cpu_f64'][1]:.3e} "
+          f"(limit {TOL_LAMBDA_REL})", flush=True)
+    check(failures, "device vs host loop lambda",
+          d["lambda_rel"] <= DL_LAMBDA_REL, f"{d['lambda_rel']}")
+    check(failures, "device vs host loop Le", d["Le_rel"] <= DL_LE_REL,
+          f"{d['Le_rel']}")
+    check(failures, "device vs host loop coefficients",
+          d["coeffs_rel"] <= DL_COEFFS_REL, f"{d['coeffs_rel']}")
+    check(failures, "device and host loop lambda vs the CPU f64 fit",
+          max(d["vs_cpu_f64"]) <= TOL_LAMBDA_REL, f"{d['vs_cpu_f64']}")
+
+    # the adaptive region (the bench's primary) each way, in turns
+    times = {"device_loop": [], "host_loop": []}
+    for _ in range(9):
+        for way in times:
+            ctx = (gl.host_loop_in_regions() if way == "host_loop"
+                   else contextlib.nullcontext())
+            with ctx:
+                t0 = gl.now(dev)
+                bench.postkernel_fit_adaptive(K, yd)
+                times[way].append(gl.now(dev) - t0)
+    out["region_s"] = {k: gl.min_median(v) for k, v in times.items()}
+    print(f"adaptive region, device loop / host loop (min, median of 9, "
+          f"in turns): " + ", ".join(
+              f"{k} {v['min']:.6f} / {v['median']:.6f} s"
+              for k, v in out["region_s"].items()) + f"  [{smi}]")
+
+    out["bench"] = gl.bench_regions(K, yd, 9)
+    for name, v in out["bench"].items():
+        print(f"  {name}: min {v['min']:.6f} s, median {v['median']:.6f} s "
+              f"(of {v['n']})  [{smi}]")
+    del K
+    torch.cuda.empty_cache()
+    print(f"device loop phase: {time.perf_counter() - t_phase:.1f} s")
+    print("device_loop: " + json.dumps(out, default=str), flush=True)
+    return out
+
+
 def check_outputs(m, s, pred, failures):
     ok = (np.all(np.isfinite(m.coeffs)) and m.coeffs.shape == (N,)
           and m.derivatives.shape == (N, P)
@@ -1858,6 +2004,7 @@ def main() -> int:
           f"{m_cpu.eig_path}, lambda {m_cpu.lambda_:.6g}")
     print("card f32 vs CPU f64:")
     compare(m, m_cpu, pred, pred_cpu, y, failures)
+    device_loop_phase(bt, m_cpu, smi.splitlines()[0], failures)
 
     # ---- K2 and the streaming slice ----
     k2 = check_k2(failures)

@@ -11,7 +11,9 @@ import torch
 
 import bigkrls_tpu as bk
 import bigkrls_tpu_torch as bt
+from bigkrls_tpu.lambda_search import lambda_search as jax_lambda_search
 from bigkrls_tpu.ops.stats import neffective_acf as jax_neffective_acf
+from bigkrls_tpu.types import Eigensystem as JaxEig
 from bigkrls_tpu.types import FactoredCovariance as JaxFactored
 from bigkrls_tpu_torch.lambda_search import lambda_search
 from bigkrls_tpu_torch.ops import kernels, matvec
@@ -82,16 +84,25 @@ def test_factored_covariance_diag_and_scaled_match_jax(rng):
 
 
 def test_lambda_search_device_loop_is_accepted(rng):
+    """``device_loop=True`` runs the JAX package's device loop (in the
+    fit's dtype), ``device_loop=False`` its host loop: each gives its JAX
+    counterpart's λ* on the same eigensystem (float64)."""
     X = rng.normal(size=(60, 3))
     X = (X - X.mean(0)) / X.std(0, ddof=1)
     y = np.sin(X[:, 0]) + 0.2 * rng.normal(size=60)
     y = (y - y.mean()) / y.std(ddof=1)
     K = kernels.gauss_kernel(torch.as_tensor(X), 3.0)
     eig = eigensystem(K)
+    ej = JaxEig(values_full=jnp.asarray(eig.values_full.numpy()),
+                vectors=jnp.asarray(eig.vectors.numpy()),
+                lastkeeper=eig.lastkeeper)
     yt = torch.as_tensor(y)
-    lam = lambda_search(eig, yt)
-    assert lambda_search(eig, yt, device_loop=True) == lam
-    assert lambda_search(eig, yt, device_loop=False) == lam
+    for device_loop in (True, False):
+        lam_j = float(jax_lambda_search(ej, jnp.asarray(y),
+                                        device_loop=device_loop))
+        lam = lambda_search(eig, yt, device_loop=device_loop)
+        assert lam == pytest.approx(lam_j, rel=1e-15, abs=0), device_loop
+    assert lambda_search(eig, yt) == lambda_search(eig, yt, device_loop=True)
 
 
 def test_neffective_acf_memory_budget_matches_jax(rng):

@@ -443,7 +443,8 @@ def test_reducibility_matches_jax(loss, q):
 
 _PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in
                      (ROOT / "bigkrls_tpu_torch").rglob("*.py")) \
-    + ["chip_smoke.py", "tools/scale_fits.py", "tools/multi_card.py"]
+    + ["chip_smoke.py", "tools/scale_fits.py", "tools/multi_card.py",
+       "tools/golden_loop.py"]
 
 
 @pytest.mark.parametrize("path", _PORT_FILES)

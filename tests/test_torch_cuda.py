@@ -618,3 +618,54 @@ def test_kernels_launch_on_every_card(cuda):
         else:
             for k, g in got.items():
                 assert torch.equal(g.cpu(), first[k]), (k, dev)
+
+
+# ---- the golden-section λ search as a device loop --------------------------
+
+def _golden_basis(dev, dtype, n=2000, k=200, seed=5):
+    """A seeded orthonormal basis with a decaying spectrum, y, and the
+    host bounds of the λ search over it."""
+    from bigkrls_tpu_torch.lambda_search import _resolve_bounds
+    from bigkrls_tpu_torch.types import Eigensystem
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(n, k)))
+    vals = n * 0.9 ** np.arange(k)
+    y = Q @ (rng.normal(size=k) * np.sqrt(vals) / np.sqrt(n)) \
+        + 0.3 * rng.normal(size=n)
+    y = (y - y.mean()) / y.std(ddof=1)
+    eig = Eigensystem(torch.as_tensor(vals, dtype=dtype, device=dev),
+                      torch.as_tensor(Q, dtype=dtype, device=dev), k)
+    L, U, tol = _resolve_bounds(eig, n, None, None, None)
+    return eig, torch.as_tensor(y, dtype=dtype, device=dev), (L, U, tol)
+
+
+def test_golden_chunk_reads_nothing_on_card(cuda, monkeypatch):
+    """Every chunk of the device loop runs under
+    ``set_sync_debug_mode("error")``: no host read inside one; the loop on
+    the card gives the CPU's λ* and iteration count in float64."""
+    from bigkrls_tpu_torch.ops import solve
+    real = solve.golden_chunk
+    calls = []
+
+    def strict(*a, **kw):
+        if a[0][0].device.type != "cuda":
+            return real(*a, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            calls.append(1)
+
+    monkeypatch.setattr(solve, "golden_chunk", strict)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        eig, y, (L, U, tol) = _golden_basis(dev, torch.float64)
+        lam, Le, coeffs, it = solve.golden_solve(eig.vectors, eig.values, y,
+                                                 L, U, tol)
+        out[dev.type] = (float(lam), it)
+    assert calls and out["cuda"][1] == out["cpu"][1] > 0
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-12)
+    eig, y, (L, U, tol) = _golden_basis(cuda, torch.float32)
+    lam, _, _, _ = solve.golden_solve(eig.vectors, eig.values, y, L, U, tol)
+    assert lam.dtype == torch.float32 and lam.device.type == "cuda"

@@ -414,7 +414,9 @@ def test_checkpoint_on_mesh_resumes_on_one_device(tmp_path):
 # the CLI, fit_step, entry() and dryrun_multichip()
 # ---------------------------------------------------------------------------
 
-def test_cli_mesh(tmp_path, capsys):
+def test_cli_mesh(tmp_path, capsys, monkeypatch):
+    # --x64 sets the package's default dtype; put it back afterwards
+    monkeypatch.setattr(bt.model, "DEFAULT_DTYPE", bt.model.DEFAULT_DTYPE)
     y, X, _ = mtcars_xy()
     data = tmp_path / "d.csv"
     np.savetxt(data, np.column_stack([y, X]), delimiter=",")

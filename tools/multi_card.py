@@ -28,7 +28,8 @@ The parts (PERF.md §2's limits: ``bench.compare_fits``):
   over a 2×2 mesh of cuda:0..3, against the same fit over a 2×2 of
   virtual shards of cuda:0 (bit-equal, else the largest difference per
   field, held to §2) and the fit on one card; K1 launches per card, cold
-  and warm times;
+  and warm times, and the golden search + solve of a warm fit timed
+  apart on the cards and on the virtual shards;
 * ``dense-64k``: the default fit of ``bench.streaming_data(64000)`` over
   the 2×2 of cards in float32 and in float64, held against each other;
   peak memory and the most live (N/2)² blocks per card, phases; and the
@@ -48,7 +49,9 @@ The parts (PERF.md §2's limits: ``bench.compare_fits``):
   ``--nproc-per-node 2`` (two cards each: the first two), NCCL, each fit
   cold and then warm, against the single-process fit of the same mesh
   (dense-90k: the ``dense-90k`` part's record), with whether it is
-  bit-equal; each rank's cards;
+  bit-equal; each rank's cards; the golden search + solve of a further
+  warm fit, timed apart. ``--procs-fits dense-small,ring`` leaves
+  dense-90k out;
 * ``cli``: ``python -m bigkrls_tpu_torch fit data.csv --mesh 2x2 --device
   cuda`` at N=3106, then ``summary`` and ``predict --se`` on the saved
   model, against the same fit in this process; each subcommand's device.
@@ -78,6 +81,7 @@ sys.path.insert(0, str(Path.cwd()))
 PARTS = ("kernels", "dense-small", "dense-64k", "dense-90k", "ring-ref",
          "ring-1m", "procs", "cli")
 CARDS = 4
+PROCS_FITS = ("dense-small", "ring", "dense-90k")
 GIB = 2 ** 30
 # what the fits may use of an 80 GB card (the streaming planner's and
 # PERF.md's ceiling)
@@ -185,6 +189,33 @@ def device_ms(fn, device, reps: int = 3, warmup: int = 1) -> float:
 
 FIELDS = ("lambda_", "looe", "neffective", "R2", "coeffs", "yfitted",
           "avgderivatives", "var_avgderivatives")
+
+
+@contextlib.contextmanager
+def timed_searches(devices):
+    """Times every golden-section search and solve (``golden_solve``, as
+    the fit's modules call it) made inside, each between two syncs of
+    ``devices``: yields the list of seconds."""
+    from bigkrls_tpu_torch import lambda_search
+    from bigkrls_tpu_torch.ops import adaptive, fused
+    times, saved = [], []
+    for mod in (adaptive, fused, lambda_search):
+        fn = mod.golden_solve
+
+        def timed(*a, _fn=fn, **kw):
+            sync(devices)
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            sync(devices)
+            times.append(time.perf_counter() - t0)
+            return out
+        saved.append((mod, fn))
+        mod.golden_solve = timed
+    try:
+        yield times
+    finally:
+        for mod, fn in saved:
+            mod.golden_solve = fn
 
 
 def counts_reset():
@@ -449,7 +480,7 @@ def dense_small_part(cfg, dev_type, out, ref, failures):
                         f"{rec['k1_by_card']}, expected one on each card")
     if not (m.eig_path or "").startswith("adaptive-krylov"):
         failures.append(f"dense-small took {m.eig_path!r}")
-    warm = {}
+    warm, warm_search = {}, {}
     for side, kw_side in (("cards", dict(mesh=mesh)),
                           ("virtual", dict(mesh=virtual)),
                           ("virtual", dict(mesh=virtual)),
@@ -459,12 +490,19 @@ def dense_small_part(cfg, dev_type, out, ref, failures):
         bt.fit(y, X, noisy=False, **kw, **kw_side)
         sync(devs)
         warm.setdefault(side, []).append(time.perf_counter() - t0)
+    for side, kw_side in (("cards", dict(mesh=mesh)),
+                          ("virtual", dict(mesh=virtual))):
+        with timed_searches(devs) as searches:
+            bt.fit(y, X, noisy=False, **kw, **kw_side)
+        warm_search[side] = searches
     print(f"dense-small warm fits (cards, virtual, virtual, cards): "
-          f"{json.dumps(warm)}", flush=True)
+          f"{json.dumps(warm)}; golden search + solve of a further warm "
+          f"fit each, synchronised apart: {json.dumps(warm_search)}",
+          flush=True)
     m_v = bt.fit(y, X, noisy=False, mesh=virtual, **kw)
     m_1 = bt.fit(y, X, noisy=False, device=devs[0], **kw)
     preds = [bt.predict(x, X[:10], se_pred=True) for x in (m, m_v, m_1)]
-    rec.update(warm_s=warm,
+    rec.update(warm_s=warm, warm_golden_solve_s=warm_search,
                vs_virtual=compare("dense-small: cards vs virtual shards",
                                   m, m_v, preds[0], preds[1], y, failures),
                vs_one_card=compare("dense-small: cards vs one card", m, m_1,
@@ -703,7 +741,11 @@ def _proc_fit(name, cfg, mesh, devs):
     bt.fit(y, X, mesh=mesh, noisy=False, **kw)
     sync(devs)
     rec["warm_s"] = time.perf_counter() - t0
-    print(f"{name}: warm {rec['warm_s']:.3f} s", flush=True)
+    with timed_searches(devs) as searches:
+        bt.fit(y, X, mesh=mesh, noisy=False, **kw)
+    rec["warm_golden_solve_s"] = searches
+    print(f"{name}: warm {rec['warm_s']:.3f} s; golden search + solve of "
+          f"a further warm fit, synchronised apart: {searches}", flush=True)
     return y, X, m, rec
 
 
@@ -762,12 +804,14 @@ def procs_part(cfg, dev_type, out, ref, failures):
         refs[name] = (m, bt.predict(m, X[:10], se_pred=True), y)
         rec["single_process"][name] = r
     path90 = Path(ref) / "dense-90k.npz"
-    if not path90.exists():
+    with90 = "dense-90k" in cfg["procs_fits"]
+    if with90 and not path90.exists():
         failures.append(f"procs: no reference at {path90} (run dense-90k)")
     free(devs)
     layouts = [(4, ["dense-small", "ring", "dense-90k"]),
                (2, ["dense-small", "ring"])]
     for nproc, fits in layouts:
+        fits = [f for f in fits if f in cfg["procs_fits"]]
         with tempfile.TemporaryDirectory() as wdir:
             cmd = [sys.executable, "-m", "torch.distributed.run",
                    "--standalone", f"--nproc-per-node={nproc}",
@@ -814,8 +858,8 @@ def procs_part(cfg, dev_type, out, ref, failures):
     return rec
 
 
-def run_part(part, dev_type, out, ref) -> dict:
-    cfg = SIZES[dev_type]
+def run_part(part, dev_type, out, ref, procs_fits=PROCS_FITS) -> dict:
+    cfg = {**SIZES[dev_type], "procs_fits": procs_fits}
     failures = []
     t0 = time.perf_counter()
     fn = {"kernels": kernels_part, "dense-small": dense_small_part,
@@ -841,6 +885,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--out", default="multi_card_out")
     ap.add_argument("--ref", default=None)
+    ap.add_argument("--procs-fits", default=",".join(PROCS_FITS),
+                    help="the fits procs runs across processes (default "
+                    "all; without dense-90k it needs no --ref)")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--wdir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -865,7 +912,8 @@ def main(argv=None) -> int:
         head["peer_access"] = print_topology()
     Path(args.out).mkdir(parents=True, exist_ok=True)
     rec = {**head, **run_part(args.only, args.device, args.out,
-                              args.ref or args.out)}
+                              args.ref or args.out,
+                              tuple(args.procs_fits.split(",")))}
     (Path(args.out) / f"{args.only}.json").write_text(json.dumps(rec))
     if rec["failures"]:
         print("FAILED:\n  " + "\n  ".join(rec["failures"]), file=sys.stderr)

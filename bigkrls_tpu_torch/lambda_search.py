@@ -24,6 +24,7 @@ import numpy as np
 from .ops.solve import (golden_search_device, golden_section,
                         golden_solve, loo_solver, solve_precompute)
 from .types import Eigensystem
+from .utils import progress
 
 _EPS = 2.220446049250313e-16  # R's .Machine$double.eps
 
@@ -75,6 +76,7 @@ def _lower_bound(values: np.ndarray) -> float:
 def _resolve_bounds(eig: Eigensystem, n: int, L, U, tol):
     """Default the bounds (over the FULL value list) and the tolerance;
     returns ``(L, U, tol)`` as floats."""
+    progress.count("host_reads")
     values_full = eig.values_full.detach().cpu().double().numpy()
     if tol is None:
         tol = 1e-3 * n
@@ -96,6 +98,7 @@ def lambda_search_solve(eig: Eigensystem, y_std, L: Optional[float] = None,
     L, U, tol = _resolve_bounds(eig, int(y_std.shape[0]), L, U, tol)
     lam, Le, coeffs, _ = golden_solve(eig.vectors, eig.values, y_std, L, U,
                                       tol)
+    progress.count("host_reads")
     return float(lam), Le, coeffs
 
 

@@ -42,6 +42,7 @@ from .parallel.sharded import (Mesh, ShardedTensor, host_gather, place,
 from .routing import select_route
 from .types import Eigensystem, FactoredCovariance, KRLSModel
 from .utils.precision import matmul_precision, reduced
+from .utils import progress
 from .utils.progress import PhaseTimer, trace
 
 # the fit's dtype when none is passed; ``enable_x64()`` sets float64
@@ -133,6 +134,9 @@ def _fit_impl(
     # a mesh's phases end when every one of its cards has finished them
     timer = PhaseTimer(device=mesh.local_devices if mesh is not None
                        else device)
+    # validation, the binary-column scan, standardization, the copies to
+    # the device and their placement: the "kernel" phase before K1
+    prepare = progress.RECORDER.open("prepare")
     fast = reduced(precision)
 
     if xlabs is None and hasattr(X, "columns"):
@@ -212,6 +216,7 @@ def _fit_impl(
     X_std, y_std, x_means, x_sds, y_mean, y_sd = standardize(Xd, yd)
     y_init_sd = float(y_sd)
     y_init_mean = float(y_mean)
+    progress.count("host_reads", 4)    # the two copies and two reads
     x_init_sds = _to_numpy(x_sds)
 
     if checkpoint_dir is not None:
@@ -253,6 +258,7 @@ def _fit_impl(
         product = functools.partial(matvec.kernel_matmul, impl=kernel_impl)
     # the kernel-free product, for every consumer outside the eigensolver
     km = functools.partial(product, fast_accum=True) if fast else product
+    progress.RECORDER.close(prepare)
 
     # ---- step 1: kernel ----
     if streaming:
@@ -263,10 +269,11 @@ def _fit_impl(
     else:
         if noisy:
             log(f"Step 1/5: Kernel (t+{time.time() - t0:.1f}s)")
-        if mesh is not None:
-            K = sharded_gauss_kernel(mesh, kernel_impl)(X_std, sigma)
-        else:
-            K = kernel_matrix(X_std, sigma, kernel_impl)
+        with progress.span("k1"):
+            if mesh is not None:
+                K = sharded_gauss_kernel(mesh, kernel_impl)(X_std, sigma)
+            else:
+                K = kernel_matrix(X_std, sigma, kernel_impl)
     timer.mark("kernel")
 
     # ---- steps 2-4 by route ----
@@ -376,14 +383,14 @@ def _fit_impl(
             log(f"Step 2/5: Spectral decomposition "
                 f"(t+{time.time() - t0:.1f}s)")
         if streaming:
-            progress = None
+            report = None
             if noisy:
-                progress = lambda d, t: log(
+                report = lambda d, t: log(
                     f"  subspace power iteration {d}/{t} "
                     f"(t+{time.time() - t0:.1f}s)")
             eig = eigensystem_streaming(
                 X_std, sigma, neig=neig, eigtrunc=eigtrunc, iters=eig_iters,
-                fast_power=fast_eig_power, progress=progress,
+                fast_power=fast_eig_power, progress=report,
                 impl=kernel_impl, mesh=ring,
                 matmul=product if ring is not None else None)
             eig_path = "streaming-krylov"
@@ -428,6 +435,7 @@ def _fit_impl(
         Le, coeffs = solve_for_c(eig, y_std, lambda_)
 
     def residual_variance(yhat_std):
+        progress.count("host_reads")
         return float(rows_reduce(lambda a, b: torch.sum((a - b) * (a - b)),
                                  y_std, yhat_std)) / n   # ref :294
 
@@ -462,6 +470,7 @@ def _fit_impl(
                 else list(range(p)))
         X_est = rows_map(lambda x: x[:, cols], X_std)
         bmask = torch.as_tensor(x_is_binary[cols], device=device)
+        progress.count("host_reads", 2)   # the index list's copy, bmask's
         z0 = rows_reduce(lambda x: torch.amin(x, dim=0), X_est, op="min")
         z1 = rows_reduce(lambda x: torch.amax(x, dim=0), X_est, op="max")
         if yhat_from_derivatives:
@@ -522,6 +531,8 @@ def _fit_impl(
             sharding_report["derivatives"] = shard_info(dres.derivatives,
                                                         mesh)
 
+    if isinstance(Le, torch.Tensor):
+        progress.count("host_reads")      # read below, in float(Le)
     yfitted = _to_numpy(yfitted_std) * y_init_sd + y_init_mean
     R2 = float(1.0 - np.var(y_np - yfitted, ddof=1) / y_init_sd ** 2)
 
@@ -552,7 +563,7 @@ def _fit_impl(
         y_sd=y_init_sd,
         x_means=_to_numpy(x_means),
         x_sds=x_init_sds,
-        timings=timer.phases,
+        timings=timer.finish(),
         sharding_report=sharding_report,
         eig_path=eig_path,
         eig_tail_theta=(adaptive_out.tail_theta if adaptive_out is not None
@@ -617,11 +628,21 @@ def fit(y, X, *, precision: str = "highest",
 
     ``trace_dir`` runs the fit under ``torch.profiler`` (host activity,
     and the card's kernels on a CUDA device) and writes a TensorBoard /
-    Chrome trace there."""
+    Chrome trace there, with the fit's spans (``utils/progress``) as
+    ranges named ``bigkrls.fit/<phase>/...``.
+
+    Every fit records its spans (``utils.progress.spans()``): the call
+    ``fit``, the five phases of ``model.timings`` under it, and inside
+    them ``prepare`` and ``k1``; on the adaptive route ``krylov``,
+    ``bounds``, ``lambda_search`` and ``check`` per attempt; on the
+    streaming route ``krylov`` and ``ritz``."""
     device = kwargs.get("device", "cuda")
+    devices = [device]
     if isinstance(kwargs.get("mesh"), Mesh):
         device = kwargs["mesh"].first_device
-    with matmul_precision(precision), trace(trace_dir, device):
+        devices = kwargs["mesh"].local_devices
+    with matmul_precision(precision), trace(trace_dir, device), \
+            progress.span("fit", device=progress.one_card(devices)):
         model = _fit_impl(y, X, precision=precision, **kwargs)
     if model_subfolder_name is not None:
         from .persistence import save_model

@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils import progress
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -109,8 +111,12 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, with every C function's signature set."""
-    lib = ctypes.CDLL(str(build()))
+    """The loaded kernel library, with every C function's signature set.
+    Loading it is a ``library`` span (host time) with the counter
+    ``built``: 1 where ``nvcc`` ran, 0 where the library was on disk."""
+    with progress.span("library", device=None) as s:
+        lib = ctypes.CDLL(str(build()))
+        s.count("built", int(last_build_seconds > 0))
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.gauss_tile_f32.argtypes = [p, p, i64, i64, i64, p, ctypes.c_float,
                                    p, *[ctypes.c_int] * 4, p]

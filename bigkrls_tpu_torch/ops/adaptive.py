@@ -31,6 +31,7 @@ from ..parallel.sharded import (ShardedTensor, block_product, commit,
                                 fetch_region, fetch_rows, inner, map_blocks,
                                 mesh_of, replicate, rows_map, trace)
 from ..types import Eigensystem
+from ..utils import progress
 from .eig import (_NAN_EIG_MSG, _krylov_geometry, _subspace_iteration,
                   lastkeeper_from_values)
 from .fused import _bisect
@@ -193,6 +194,7 @@ class AdaptiveEig:
 
     def neffective(self, lam: float, n: int) -> float:
         """N − Σ λ/(λ+λ*) over the completed spectrum."""
+        progress.count("host_reads")
         head = self.eig.values_full.detach().cpu().double().numpy()
         return float(n) - _wsum(head, self.tail_theta, self.tail_w, lam)
 
@@ -300,6 +302,7 @@ def _quad_device(m, npts: int):
     # f32) make J non-finite; torch's eigh raises on that where JAX's
     # returns NaN, so such a candidate is marked invalid before the eigh
     J_ok = torch.isfinite(J).all()
+    progress.count("host_reads")    # eigh checks its info on the host
     theta_s, V = torch.linalg.eigh(torch.where(J_ok, 0.5 * (J + J.T), eye))
     valid = (chol_ok & J_ok & (theta_s[0] >= -1e-10)
              & torch.isfinite(theta_s).all())
@@ -371,21 +374,24 @@ def _adaptive_fused(K, y_std, k: int, iters: int, eigtrunc: float,
     caller fetches the rest in one copy."""
     n = K.shape[0]
     dt = y_std.dtype
-    vals, vecs, moments = _krylov_moments(K, k, iters, extra)
+    with progress.span("krylov"):
+        vals, vecs, moments = _krylov_moments(K, k, iters, extra)
 
-    keep = vals >= eigtrunc * vals[0]
-    idx = torch.arange(k, device=K.device)
-    lastkeeper = torch.clamp_min(
-        torch.max(torch.where(keep, idx, -1)) + 1, 1)
-    mask = (idx < lastkeeper).to(dt)
+    with progress.span("bounds"):
+        keep = vals >= eigtrunc * vals[0]
+        idx = torch.arange(k, device=K.device)
+        lastkeeper = torch.clamp_min(
+            torch.max(torch.where(keep, idx, -1)) + 1, 1)
+        mask = (idx < lastkeeper).to(dt)
 
-    theta, w = _tail_atoms_device(moments, float(n - k))
-    L = _lower_bound_completed_device(vals, theta, w)
-    U = _upper_bound_completed_device(vals, theta, w, n)
+        theta, w = _tail_atoms_device(moments, float(n - k))
+        L = _lower_bound_completed_device(vals, theta, w)
+        U = _upper_bound_completed_device(vals, theta, w, n)
 
-    lam, Le, coeffs, it = golden_solve(vecs, vals, y_std, L, U, tol,
-                                       mask=mask)
-    spectrum = mask / (vals + lam) ** 2
+    with progress.span("lambda_search"):
+        lam, Le, coeffs, it = golden_solve(vecs, vals, y_std, L, U, tol,
+                                           mask=mask)
+        spectrum = mask / (vals + lam) ** 2
     return (vals, vecs, moments, lastkeeper, theta, w, L, U, lam, Le, coeffs,
             spectrum, it)
 
@@ -429,20 +435,29 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
         (vals, vecs, moments, lk_d, _theta_d, _w_d, L_d, U_d, lam_d, Le_d,
          coeffs_d, spectrum_d, _it) = _adaptive_fused(
             K, y_std, k, iters, eigtrunc, tol, extra)
-        # one copy for every number the host checks (the JAX caller's one
-        # round trip): values, moments, L, U, λ*, Le, lastkeeper
-        host = torch.cat([vals, moments, torch.stack(
-            [L_d, U_d, lam_d, Le_d, lk_d.to(vals.dtype)])]).double()
-        host = host.detach().cpu().numpy()
-        vals_np, m_np = host[:k], host[k:k + 5]
-        L_dev, U_dev, lam, Le, lk = host[k + 5:].tolist()
-        if np.any(np.isnan(vals_np)):
-            raise ValueError(_NAN_EIG_MSG)
-        plan, aux = _capture_plan(vals_np, eigtrunc, k, kcap, n=n,
-                                  noisy=noisy, log=log)
-        if plan == "ok":
-            lastkeeper = aux
-            break
+        with progress.span("check"):
+            # one copy for every number the host checks (the JAX caller's
+            # one round trip): values, moments, L, U, λ*, Le, lastkeeper
+            host = torch.cat([vals, moments, torch.stack(
+                [L_d, U_d, lam_d, Le_d, lk_d.to(vals.dtype)])]).double()
+            progress.count("host_reads")
+            host = host.detach().cpu().numpy()
+            vals_np, m_np = host[:k], host[k:k + 5]
+            L_dev, U_dev, lam, Le, lk = host[k + 5:].tolist()
+            if np.any(np.isnan(vals_np)):
+                raise ValueError(_NAN_EIG_MSG)
+            plan, aux = _capture_plan(vals_np, eigtrunc, k, kcap, n=n,
+                                      noisy=noisy, log=log)
+            if plan == "ok":
+                lastkeeper = aux
+                # exact f64 bounds from the same values/moments (the
+                # oracle)
+                tail_m = np.concatenate([[float(n - k)],
+                                         np.maximum(m_np, 0.0)])
+                theta, w = _tail_atoms(tail_m)
+                L = _lower_bound_completed(vals_np, theta, w)
+                U = _upper_bound_completed(vals_np, theta, w, n)
+                break
         if plan == "fallback":
             return None
         k = aux
@@ -452,11 +467,6 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
                 "falling back to exact dense eigh")
         return None
 
-    # exact f64 bounds from the same values/moments (the oracle)
-    tail_m = np.concatenate([[float(n - k)], np.maximum(m_np, 0.0)])
-    theta, w = _tail_atoms(tail_m)
-    L = _lower_bound_completed(vals_np, theta, w)
-    U = _upper_bound_completed(vals_np, theta, w, n)
     if noisy:
         log(f"  adaptive eig: computed {k} of {n} eigenpairs "
             f"(lastkeeper={lastkeeper}); tail completed by "
@@ -479,8 +489,9 @@ def postkernel_adaptive(K, y_std, eigtrunc: float, tol: float,
     if noisy:
         log("  adaptive eig: working-precision bounds differ from the "
             "f64 oracle; re-running golden+solve with exact bounds")
-    lam, Le, coeffs = resume_adaptive(out, y_std, tol)
-    spectrum = 1.0 / (out.eig.values + lam) ** 2
+    with progress.span("lambda_search"):
+        lam, Le, coeffs = resume_adaptive(out, y_std, tol)
+        spectrum = 1.0 / (out.eig.values + lam) ** 2
     return out, lam, Le, coeffs, spectrum
 
 
@@ -491,6 +502,7 @@ def resume_adaptive(out: AdaptiveEig, y_std, tol: float):
     with λ* and Le read in one copy."""
     lam, Le, coeffs, _ = golden_solve(out.eig.vectors, out.eig.values,
                                       y_std, out.L, out.U, tol)
+    progress.count("host_reads")
     lam, Le = torch.stack([lam, Le]).tolist()
     return lam, Le, coeffs
 

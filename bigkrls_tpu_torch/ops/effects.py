@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..parallel.sharded import gram, rows_map
+from ..utils.progress import count
 
 
 class DerivativesResult(NamedTuple):
@@ -115,6 +116,7 @@ def derivatives_streaming(X_full, cols, coeffs, Q, spectrum, sigma: float,
     them. The result's ``yfitted_std`` is the product's first column,
     K·c, so the fit needs no separate product for ŷ."""
     X_sel = rows_map(lambda x: x[:, list(cols)], X_full)
+    count("host_reads")      # the index list's copy to the device
     delta, B = _binary_geometry(X_sel, binary_mask, z0, z1)
     Y = matmul(X_full, _rhs_stack(X_sel, coeffs, B), sigma)
     return _from_products(Y, X_sel, coeffs, Q, spectrum, float(sigma),

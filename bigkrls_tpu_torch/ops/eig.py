@@ -33,6 +33,7 @@ from ..parallel.sharded import (ShardedTensor, collect, commit, dense, gram,
                                 mesh_of, place, replicate, rows_map,
                                 rows_reduce)
 from ..types import Eigensystem
+from ..utils.progress import RECORDER, count, span
 from . import matvec
 
 # above this many rows an f32 block is orthonormalized by CholeskyQR²
@@ -130,6 +131,7 @@ def _block_orth(W):
     ok = ((i1 == 0) & (i2 == 0) & torch.isfinite(L1).all()
           & torch.isfinite(L2).all() & torch.isfinite(orth_err)
           & (orth_err < 1e-5))
+    count("host_reads")
     if bool(ok):
         block_orth_counts["cholqr2"] += 1
         return Q2
@@ -143,6 +145,7 @@ def _ritz_topk(B, KB, k: int):
     broadcast; the Ritz vectors stay on the shards."""
     T = gram(B, KB)
     T = 0.5 * (T + T.T)
+    count("host_reads")    # eigh checks its info on the host
     evals, S = replicate(mesh_of(B), *torch.linalg.eigh(T))   # ascending
     return evals.flip(0)[:k], rows_map(lambda b, s: b @ s, B,
                                        S.flip(1)[:, :k])
@@ -419,6 +422,7 @@ def _cheb_app_start(X, V, c_prev: float, sigma, matmul):
     S = gram(V, W)
     S = 0.5 * (S + S.T)
     (theta,) = replicate(mesh_of(V), torch.linalg.eigvalsh(S))  # ascending
+    count("host_reads", 2)     # eigvalsh's info, the cutoff
     lo, hi = theta[[0, -1]].tolist()
     c = max(max(c_prev, lo), 1e-6 * hi)
     Y = rows_map(lambda w, v: w.mul(2.0 / c).sub_(v), W, V)
@@ -601,7 +605,13 @@ def eigensystem_streaming(
     (the Grams of DGKS, CholeskyQR² and Rayleigh–Ritz reduced over the
     shards, their factorizations computed once and broadcast), and so are
     the returned eigenvectors; otherwise they stay gathered, with a
-    warning (the ring still splits every product)."""
+    warning (the ring still splits every product).
+
+    Spans (``utils/progress``): ``krylov`` (the start block and the power,
+    Krylov or Chebyshev blocks with their orthogonalization), then
+    ``ritz`` (the Rayleigh–Ritz products, the Ritz ``eigh``, the values'
+    read and lastkeeper)."""
+    basis = RECORDER.open("krylov")
     if mesh is not None and X_std.shape[0] % mesh.size:
         _LOG.warning(
             "eigensystem_streaming: N=%d not divisible by %d shards; the "
@@ -674,8 +684,8 @@ def eigensystem_streaming(
                                         power_matmul, reuse_kb)
             done += steps
             report(done, iters)
-        vals, vecs = _krylov_ritz_streaming(X_std, B, KB, V, sigma, neig,
-                                            matmul, reuse_kb)
+        ritz = functools.partial(_krylov_ritz_streaming, X_std, B, KB, V,
+                                 sigma, neig, matmul, reuse_kb)
     elif krylov:
         # small n (basis width would reach n): stacked blocks + fat QR
         done = 0
@@ -687,8 +697,8 @@ def eigensystem_streaming(
             bases.append(blocks)
             done += steps
             report(done, iters)
-        vals, vecs = _fatqr_ritz_streaming(
-            X_std, _hcat(bases), sigma, neig, matmul)
+        ritz = functools.partial(_fatqr_ritz_streaming, X_std,
+                                 _hcat(bases), sigma, neig, matmul)
     else:
         # constant-memory flow: Chebyshev-filtered subspace iteration. The
         # cutoff needs no a-priori spectral bounds: each application
@@ -711,15 +721,19 @@ def eigensystem_streaming(
             V = _orth(Yc)
             del Yc
         # Rayleigh–Ritz on the last block only, K·B at full precision
-        vals, vecs = _krylov_ritz_streaming(X_std, V, None, V, sigma, neig,
-                                            matmul, False)
-    vecs = _neg(vecs)
-    vals_np = vals.detach().cpu().numpy()
-    if np.any(np.isnan(vals_np)):
-        raise ValueError(_NAN_EIG_MSG)
-    lastkeeper = lastkeeper_from_values(vals_np, eigtrunc)
-    if rows:
-        vecs = rows_map(lambda v: v[:, :lastkeeper].contiguous(), vecs)
-    else:
-        vecs = vecs[:, :lastkeeper]
+        ritz = functools.partial(_krylov_ritz_streaming, X_std, V, None, V,
+                                 sigma, neig, matmul, False)
+    RECORDER.close(basis)
+    with span("ritz"):
+        vals, vecs = ritz()
+        vecs = _neg(vecs)
+        count("host_reads")
+        vals_np = vals.detach().cpu().numpy()
+        if np.any(np.isnan(vals_np)):
+            raise ValueError(_NAN_EIG_MSG)
+        lastkeeper = lastkeeper_from_values(vals_np, eigtrunc)
+        if rows:
+            vecs = rows_map(lambda v: v[:, :lastkeeper].contiguous(), vecs)
+        else:
+            vecs = vecs[:, :lastkeeper]
     return Eigensystem(values_full=vals, vectors=vecs, lastkeeper=lastkeeper)

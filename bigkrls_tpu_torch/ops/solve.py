@@ -27,6 +27,7 @@ import torch
 from ..parallel.sharded import (ShardedTensor, gram, mesh_of, place,
                                 replicate, rows_map, rows_reduce)
 from ..types import Eigensystem
+from ..utils.progress import count
 
 GOLD = 0.381966          # R's golden-section constant (bLambdaSearch)
 GOLDEN_MAX_ITERS = 10_000
@@ -213,6 +214,7 @@ def golden_search_device(vectors, values, Qty, Q2, L, U, tol, mask=None,
         head = torch.stack([it.to(dt), running.to(dt)])
         if brackets is not None:
             head = torch.cat([head, torch.stack(brackets).reshape(-1)])
+        count("host_reads")
         read = head.tolist()
         chunks += 1
         last, iters, stop = iters, int(read[0]), read[1] == 0.0

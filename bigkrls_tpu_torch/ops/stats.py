@@ -12,6 +12,7 @@ import scipy.special
 import torch
 
 from ..parallel.sharded import dense
+from ..utils import progress
 
 
 def col_sd(X, dim=0):
@@ -34,6 +35,7 @@ def standardize(X, y):
 
 def neffective_spectral(values_full, lambda_, n: int) -> float:
     """N − Σ λₖ/(λₖ+λ) over the full eigenvalue list."""
+    progress.count("host_reads")
     return float(n - torch.sum(values_full / (values_full + lambda_)))
 
 

@@ -55,6 +55,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import progress
+
 SPECS = ("row", "block", "replicated")
 
 # the gathers a mesh fit may make of an N-row object, by label, with the
@@ -442,12 +444,15 @@ def host_gather(arr, label: str = "host_gather",
     """Fetch to host numpy (in the tensor's own dtype), shard by shard, so
     that no device holds a sharded tensor whole. Across processes every
     process receives it, or only process ``dst`` (the others get None):
-    each shard travels from its owner on its own."""
+    each shard travels from its owner on its own. Each copy to the host
+    counts as one of the open span's ``host_reads``."""
     if not isinstance(arr, ShardedTensor):
         if isinstance(arr, torch.Tensor):
+            progress.count("host_reads")
             return arr.detach().cpu().numpy()
         return np.asarray(arr)
     if arr.spec == "replicated":
+        progress.count("host_reads")
         return arr.shards[0].detach().cpu().numpy()
     _note_gather(label, arr.shape)
     me, span = _rank(), spans_processes(arr.mesh)
@@ -481,6 +486,7 @@ def host_gather(arr, label: str = "host_gather",
             r0, r1, c0, c1 = arr.key_bounds(key)
             sl = ((slice(r0, r1), slice(c0, c1)) if arr.spec == "block"
                   else slice(r0, r1))
+            progress.count("host_reads")
             out[sl] = t.detach().cpu().numpy()
     return out
 

@@ -14,7 +14,7 @@ Port of ``bigkrls_tpu/predict.py`` (``predict.bigKRLS``,
   (N/Neff)^¼ quirk, kept for parity;
 * above ``AUTO_BLOCK_ELEMS`` cross-kernel elements (or with
   ``block_size``) newdata is processed in row blocks and ``newdataK`` is
-  returned as None.
+  returned as None (a warning, once per process, says so).
 
 The device and dtype are those of the model's kernel or, for a model
 without one (a streaming fit, a converted model), of its covariance
@@ -23,6 +23,14 @@ its mesh: the training rows are laid out as Q's, each row shard's cross
 kernel is one K1 launch on its device, and ŷ = K_new·c and the SEs'
 Qᵀ·K_newᵀ are sums over the row shards; ``newdataK`` is fetched to the
 host shard by shard.
+
+Each call records its spans (``utils/progress``): the call ``predict``
+(counter ``blocked``), and under it ``prepare`` (the re-standardization
+of the training X and of newdata, the copies to the device, counter
+``bytes_to_device``), ``kernel`` (the K1 cross launches), ``products``
+(ŷ = K·c and the SEs' quadratic form) and ``to_host`` (``newdataK``, ŷ
+and the SEs to the host as float64, counter ``bytes_to_host``); on the
+blocked path one ``kernel``, ``products`` and ``to_host`` a block.
 """
 from __future__ import annotations
 
@@ -35,9 +43,13 @@ from .ops.kernels import cross_kernel_matrix
 from .parallel.sharded import (ShardedTensor, gram, host_gather, mesh_of,
                                place, rows_map)
 from .types import KRLSModel, KRLSPrediction
+from .utils import progress
 from .utils.precision import matmul_precision
 
 AUTO_BLOCK_ELEMS = 50_000_000
+
+_LOG = logging.getLogger("bigkrls_tpu_torch")
+_warned_blocked = False
 
 
 def _model_placement(model: KRLSModel):
@@ -48,7 +60,32 @@ def _model_placement(model: KRLSModel):
 
 
 def _np(t) -> np.ndarray:
-    return host_gather(t).astype(np.float64)
+    a = host_gather(t)
+    progress.count("bytes_to_host", a.nbytes)
+    return a.astype(np.float64)
+
+
+def _to_device(a: np.ndarray, dtype, device) -> torch.Tensor:
+    """A copy from pageable host memory: the host waits for the stream,
+    as for a read."""
+    t = torch.as_tensor(a, dtype=dtype, device=device)
+    progress.count("host_reads")
+    progress.count("bytes_to_device", t.numel() * t.element_size())
+    return t
+
+
+def _warn_blocked(elems: int, block_size: int) -> None:
+    """The switch to the blocked path, logged once per process."""
+    global _warned_blocked
+    if _warned_blocked:
+        return
+    _warned_blocked = True
+    _LOG.warning(
+        "predict: U*N = %d cross-kernel elements exceeds %d; switching to "
+        "the blocked path (block_size=%d). prediction.newdataK will be "
+        "None — pass block_size >= nrow(newdata) to force the dense cross "
+        "kernel. (Logged once per process.)", elems, AUTO_BLOCK_ELEMS,
+        block_size)
 
 
 def predict(model: KRLSModel, newdata, se_pred: bool = False,
@@ -57,13 +94,19 @@ def predict(model: KRLSModel, newdata, se_pred: bool = False,
             block_size: int = None) -> KRLSPrediction:
     """Predictions (and standard errors) for ``newdata``; ``precision``
     sets the product precision, as in ``fit`` (``utils/precision``)."""
-    with matmul_precision(precision):
+    device, _ = _model_placement(model)
+    mesh = mesh_of(getattr(model.vcov_c_factored, "Q", None), model.K)
+    devices = [device] if mesh is None else mesh.local_devices
+    with matmul_precision(precision), \
+            progress.span("predict", device=progress.one_card(devices)) as s:
         return _predict_impl(model, newdata, se_pred, correct_SE, ytest,
-                             materialize_vcov, block_size)
+                             materialize_vcov, block_size, mesh, s)
 
 
 def _predict_impl(model, newdata, se_pred, correct_SE, ytest,
-                  materialize_vcov, block_size) -> KRLSPrediction:
+                  materialize_vcov, block_size, mesh,
+                  call) -> KRLSPrediction:
+    prepare = progress.RECORDER.open("prepare")
     newdata_np = np.asarray(newdata, dtype=np.float64)
     if newdata_np.ndim == 1:
         newdata_np = newdata_np[:, None]
@@ -74,31 +117,26 @@ def _predict_impl(model, newdata, se_pred, correct_SE, ytest,
             "refit with vcov_est=True to compute standard errors on predictions")
 
     device, dtype = _model_placement(model)
-    mesh = mesh_of(getattr(model.vcov_c_factored, "Q", None), model.K)
     Xm = model.X.mean(axis=0)
     Xs = model.X.std(axis=0, ddof=1)
-    X_std = torch.as_tensor((model.X - Xm) / Xs, dtype=dtype,
-                            device=device if mesh is None else "cpu")
-    new_std = torch.as_tensor((newdata_np - Xm) / Xs, dtype=dtype,
-                              device=device)
+    X_std = _to_device((model.X - Xm) / Xs, dtype,
+                       device if mesh is None else "cpu")
+    new_std = _to_device((newdata_np - Xm) / Xs, dtype, device)
 
     U, n = new_std.shape[0], X_std.shape[0]
     if block_size is None and U * n > AUTO_BLOCK_ELEMS:
         block_size = max(1, AUTO_BLOCK_ELEMS // n)
-        logging.getLogger("bigkrls_tpu_torch").warning(
-            "predict: U*N = %d cross-kernel elements exceeds %d; switching "
-            "to the blocked path (block_size=%d). prediction.newdataK will "
-            "be None — pass block_size >= nrow(newdata) to force the dense "
-            "cross kernel.", U * n, AUTO_BLOCK_ELEMS, block_size)
+        _warn_blocked(U * n, block_size)
     blocked = block_size is not None and block_size < U
+    call.count("blocked", int(blocked))
     if blocked and materialize_vcov:
         raise ValueError(
             "materialize_vcov builds the dense U x U prediction covariance "
             "and needs the full cross kernel; pass block_size=None (and "
             "enough memory) to request it at this scale.")
 
-    coeffs = torch.as_tensor(model.coeffs, dtype=dtype,
-                             device=device if mesh is None else "cpu")
+    coeffs = _to_device(model.coeffs, dtype,
+                        device if mesh is None else "cpu")
     if mesh is not None:
         X_std, coeffs = place(X_std, mesh, "row"), place(coeffs, mesh, "row")
 
@@ -111,30 +149,50 @@ def _predict_impl(model, newdata, se_pred, correct_SE, ytest,
     if se_pred and correct_SE and model.neffective is not None:
         corr = float(np.sqrt(model.n / model.neffective))
     y_sd, y_mean = model.y.std(ddof=1), model.y.mean()
+    progress.RECORDER.close(prepare)
+
+    def products(KT, vcov=False):
+        """ŷ (standardized) and, with ``se_pred``, the SEs' quadratic form
+        on the device: its diagonal, or with ``vcov`` the (U, U) form."""
+        with progress.span("products"):
+            yp = gram(KT, coeffs)
+            if not se_pred:
+                return yp, None
+            if vcov:
+                return yp, fac.quad_form(KT) * corr
+            return yp, fac.quad_form_diag(KT) * corr
 
     se = None
     vcov_pred = None
-    Knew = None
+    newdataK = None
     if blocked:
         ypred_std = np.empty(U, dtype=np.float64)
         if se_pred:
             se = np.empty(U, dtype=np.float64)
         for lo in range(0, U, block_size):
             hi = min(lo + block_size, U)
-            KbT = cross_t(new_std[lo:hi].contiguous())
-            ypred_std[lo:hi] = _np(gram(KbT, coeffs))
-            if se_pred:
-                se[lo:hi] = np.sqrt(_np(fac.quad_form_diag(KbT) * corr))
+            with progress.span("kernel"):
+                KbT = cross_t(new_std[lo:hi].contiguous())
+            yp, q = products(KbT)
+            with progress.span("to_host"):
+                ypred_std[lo:hi] = _np(yp)
+                if se_pred:
+                    se[lo:hi] = np.sqrt(_np(q))
     else:
-        KnewT = cross_t(new_std)
-        Knew = KnewT.T if isinstance(KnewT, torch.Tensor) else KnewT
-        ypred_std = _np(gram(KnewT, coeffs))
-        if se_pred:
-            if materialize_vcov:
-                vcov_pred = _np(fac.quad_form(KnewT) * corr)   # (U, U)
-                se = np.sqrt(np.diag(vcov_pred))
-            else:
-                se = np.sqrt(_np(fac.quad_form_diag(KnewT) * corr))
+        with progress.span("kernel"):
+            KnewT = cross_t(new_std)
+        yp, q = products(KnewT, vcov=materialize_vcov)
+        with progress.span("to_host"):
+            ypred_std = _np(yp)
+            if se_pred:
+                if materialize_vcov:
+                    vcov_pred = _np(q)   # (U, U)
+                    se = np.sqrt(np.diag(vcov_pred))
+                else:
+                    se = np.sqrt(_np(q))
+            # U x N: a row-sharded K_newᵀ is fetched shard by shard
+            newdataK = (_np(KnewT).T if isinstance(KnewT, ShardedTensor)
+                        else _np(KnewT.T))
     ypred = ypred_std * y_sd + y_mean
 
     pseudoR2 = mse = None
@@ -150,9 +208,7 @@ def _predict_impl(model, newdata, se_pred, correct_SE, ytest,
         predicted=ypred,
         se_pred=se,
         newdata=newdata_np,
-        newdataK=(None if Knew is None else
-                  _np(Knew).T if isinstance(Knew, ShardedTensor)
-                  else _np(Knew)),
+        newdataK=newdataK,
         ytest=ytest,
         vcov_est_pred=vcov_pred,
         pseudoR2=pseudoR2,

@@ -669,3 +669,33 @@ def test_golden_chunk_reads_nothing_on_card(cuda, monkeypatch):
     eig, y, (L, U, tol) = _golden_basis(cuda, torch.float32)
     lam, _, _, _ = solve.golden_solve(eig.vectors, eig.values, y, L, U, tol)
     assert lam.dtype == torch.float32 and lam.device.type == "cuda"
+
+
+def test_one_card_fit_times_phases_without_synchronize(cuda, monkeypatch):
+    """A fit on one card calls ``torch.cuda.synchronize`` nowhere: its
+    phases are device intervals between CUDA events, read at the fit's
+    end, and every span under the call's root has its device interval."""
+    import bigkrls_tpu_torch as bt
+    from bigkrls_tpu_torch.utils.progress import PHASES
+    from bigkrls_tpu_torch.utils import progress
+    rng = np.random.default_rng(17)
+    X = rng.normal(size=(2100, 5))
+    y = np.sin(X[:, 0]) + X[:, 1] + 0.1 * rng.normal(size=2100)
+    bt.fit(y, X, device="cuda", noisy=False, eigtrunc=0.01)
+    synced = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: synced.append(d) or real(d))
+    m = bt.fit(y, X, device="cuda", noisy=False, eigtrunc=0.01)
+    assert synced == []
+    monkeypatch.undo()
+    assert m.eig_path.startswith("adaptive-krylov")
+    assert [t["phase"] for t in m.timings] == list(PHASES)
+    log = progress.spans()
+    root = [s for s in log if s.parent is None and s.name == "fit"][-1]
+    mine = [s for s in log if s.call == root.call]
+    assert all((s.device_s is None) == (s is root or s.name == "library")
+               for s in mine)
+    phases = [s for s in mine if s.parent == root.id]
+    assert [round(s.device_s, 4) for s in phases] == \
+        [t["seconds"] for t in m.timings]

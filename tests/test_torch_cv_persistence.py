@@ -319,7 +319,11 @@ def test_fit_trace_dir_writes_trace(tmp_path, synth):
            **CPU64)
     files = list(d.glob("*.pt.trace.json"))
     assert len(files) == 1
-    assert "traceEvents" in json.loads(files[0].read_text())
+    events = json.loads(files[0].read_text())["traceEvents"]
+    # the fit's spans, as ranges named by path
+    names = {e.get("name") for e in events}
+    assert {"bigkrls.fit", "bigkrls.fit/kernel/prepare",
+            "bigkrls.fit/eigendecomposition"} <= names
 
 
 # ---------------------------------------------------------------------------

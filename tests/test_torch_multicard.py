@@ -19,6 +19,7 @@ import os
 import socket
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -144,10 +145,28 @@ def test_gloo_path_is_unchanged(four_cards, monkeypatch):
 # phases that end on every card
 # ---------------------------------------------------------------------------
 
+class _Event:
+    """A CUDA event's host side: 1.5 ms between any two."""
+
+    def __init__(self, enable_timing=False):
+        self.stream = None
+
+    def record(self, stream=None):
+        self.stream = stream
+
+    def query(self):
+        return True
+
+    def elapsed_time(self, other):
+        return 1.5
+
+
 def test_phase_timer_synchronizes_each_card_once(monkeypatch):
     """Each mark waits for every distinct CUDA device of the mesh once
     (virtual shards repeat a card; the CPU needs no wait). Before, only the
-    first card was synchronized."""
+    first card was synchronized. On one card no mark synchronizes: a phase
+    is the device interval between two CUDA events on its stream."""
+    from bigkrls_tpu_torch.utils import progress
     from bigkrls_tpu_torch.utils.progress import PhaseTimer
     synced = []
     monkeypatch.setattr(torch.cuda, "synchronize",
@@ -160,9 +179,18 @@ def test_phase_timer_synchronizes_each_card_once(monkeypatch):
     assert [p["phase"] for p in timer.phases] == ["kernel",
                                                   "eigendecomposition"]
     synced.clear()
-    PhaseTimer(device="cuda:2").mark("one")
+    monkeypatch.setattr(progress, "RECORDER", progress.Recorder())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(
+                            device_index=torch.device(d).index))
+    with progress.span("fit", device="cuda:2"):
+        one = PhaseTimer(device="cuda:2")
+        one.mark("one")
     PhaseTimer(device="cpu").mark("none")
-    assert synced == ["cuda:2"]
+    assert synced == []
+    assert one.finish() == [{"phase": "one", "seconds": 0.0015}]
 
 
 def test_mesh_fit_times_every_local_device(monkeypatch):

@@ -558,6 +558,98 @@ def test_save_load_predict_bit_equal_on_card(cuda, tmp_path):
     assert np.array_equal(a.se_pred, b.se_pred)
 
 
+# ---- predict's results to the host ----------------------------------------
+
+@pytest.fixture(scope="module")
+def card_model():
+    """The dense benchmark cells' model: N=3106, P=67, float32 on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import bigkrls_tpu_torch as bt
+    from bigkrls_tpu_torch import bench
+    y, X = bench.smoke_data()
+    return bt.fit(y, X, noisy=False, device="cuda"), X
+
+
+def _predict_spans():
+    from bigkrls_tpu_torch.utils import progress
+    log = progress.spans()
+    root = [s for s in log if s.parent is None and s.name == "predict"][-1]
+    return [s for s in log if s.call == root.call]
+
+
+@pytest.mark.parametrize("u,block_size,vcov", [
+    (1, None, False), (517, None, False), (3106, None, False),
+    (517, 200, False), (300, None, True)])
+def test_predict_lands_in_pinned_memory_bit_equal(cuda, card_model,
+                                                  monkeypatch, u, block_size,
+                                                  vcov):
+    """On one card every result is widened to float64 on the card and
+    copied into pinned memory with one wait a ``to_host`` span: bit-equal
+    to the float32 results read to pageable memory and widened on the
+    host (the CPU's path, forced here), every byte counted as pinned."""
+    import importlib
+
+    import bigkrls_tpu_torch as bt
+    tpredict = importlib.import_module("bigkrls_tpu_torch.predict")
+    m, X = card_model
+    rng = np.random.default_rng(u)
+    new = X[rng.integers(0, X.shape[0], size=u)] + 0.1
+    kw = dict(se_pred=True, block_size=block_size, materialize_vcov=vcov)
+    got = bt.predict(m, new, **kw)
+    spans = _predict_spans()
+    to_host = [s for s in spans if s.name == "to_host"]
+    assert len(to_host) == (-(-u // block_size) if block_size else 1)
+    assert [s.counters["host_reads"] for s in to_host] == [1] * len(to_host)
+    copied = u * (2 if block_size else 1 + (u if vcov else 1) + X.shape[0])
+    for key in ("bytes_to_host", "bytes_to_host_pinned"):
+        assert sum(s.counters.get(key, 0) for s in spans) == 8 * copied
+    real = tpredict._ToHost
+    with monkeypatch.context() as mp:
+        mp.setattr(tpredict, "_ToHost", lambda _: real(False))
+        want = bt.predict(m, new, **kw)
+    assert sum(s.counters.get("bytes_to_host_pinned", 0)
+               for s in _predict_spans()) == 0
+    for name in ("predicted", "se_pred", "newdataK", "vcov_est_pred"):
+        a, b = getattr(got, name), getattr(want, name)
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == np.float64 and a.flags.c_contiguous, name
+        assert a.flags.writeable, name
+        assert np.array_equal(a, b), name
+    assert got.newdataK is None if block_size else \
+        got.newdataK.shape == (u, X.shape[0])
+
+
+def test_pinned_results_outlive_the_next_call(cuda, card_model):
+    """A result is a view of its pinned block, which the allocator hands
+    out again only once nothing holds the array: a second call of the
+    same size leaves the first call's arrays as they were."""
+    import bigkrls_tpu_torch as bt
+    m, X = card_model
+    a = bt.predict(m, X[:517], se_pred=True)
+    kept = {k: getattr(a, k).copy() for k in ("predicted", "se_pred",
+                                              "newdataK")}
+    b = bt.predict(m, X[517:1034], se_pred=True)
+    for k, v in kept.items():
+        assert np.array_equal(getattr(a, k), v), k
+        assert not np.shares_memory(getattr(a, k), getattr(b, k)), k
+    assert not np.array_equal(a.newdataK, b.newdataK)
+
+
+def test_pinned_prediction_round_trips_through_persistence(cuda, card_model,
+                                                           tmp_path):
+    import bigkrls_tpu_torch as bt
+    m, X = card_model
+    p = bt.predict(m, X[100:400] * 0.9, se_pred=True)
+    back = bt.load_model(bt.save_model(p, str(tmp_path / "p")),
+                         device="cuda")
+    for k in ("predicted", "se_pred", "newdata", "newdataK"):
+        assert np.array_equal(getattr(back, k), getattr(p, k)), k
+
+
 def test_adaptive_resume_bit_equal_on_card(cuda, tmp_path):
     import bigkrls_tpu_torch as bt
     y, X = _lowrank(1024)

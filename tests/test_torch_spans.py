@@ -1,7 +1,8 @@
 """The port's span recorder (``utils/progress``) on the CPU: the span tree
 of a fit on the adaptive and the streaming route and of ``predict`` on
-its dense and blocked paths, the ``host_reads`` and byte counters, the
-log's bound, and the profiler ranges only inside the program's own
+its dense and blocked paths, the ``host_reads`` and byte counters, where
+``predict``'s results land (pageable on the CPU; the pinned path's
+bookkeeping and its fallback), the log's bound, and the profiler ranges only inside the program's own
 ``trace``. Imports no JAX."""
 import contextlib
 import importlib
@@ -131,6 +132,85 @@ def test_dense_predict_returns_the_bytes_it_copied(adaptive_fit):
     assert p.newdataK.shape == (30, X.shape[0])
     assert sum(s.counters.get("bytes_to_host", 0) for s in spans) == \
         p.predicted.nbytes + p.se_pred.nbytes + p.newdataK.nbytes
+
+
+@pytest.mark.parametrize("block_size", [None, 7])
+def test_predict_returns_float64_c_contiguous_writable_arrays(adaptive_fit,
+                                                              block_size):
+    """On the CPU the results are read into pageable memory as before:
+    float64, C-contiguous, writable, and none of their bytes pinned."""
+    m, X, _ = adaptive_fit
+    new = X[:20] - 0.2
+    p = bt.predict(m, new, se_pred=True, block_size=block_size)
+    spans, root = _call("predict")
+    shapes = {"predicted": (20,), "se_pred": (20,),
+              "newdataK": None if block_size else (20, X.shape[0])}
+    for name, shape in shapes.items():
+        a = getattr(p, name)
+        if shape is None:
+            assert a is None
+            continue
+        assert a.shape == shape and a.dtype == np.float64, name
+        assert a.flags.c_contiguous and a.flags.writeable, name
+    assert root.counters["blocked"] == int(block_size is not None)
+    assert sum(s.counters.get("bytes_to_host_pinned", 0)
+               for s in spans) == 0
+    assert sum(s.counters.get("bytes_to_host", 0) for s in spans) > 0
+
+
+def test_predict_falls_back_to_pageable_memory_where_pinning_fails(
+        adaptive_fit, monkeypatch):
+    """A call that asks for pinned memory where the allocator has none (a
+    CPU-only build raises) reads every result as the CPU path does, bit
+    for bit, and asks no more in that call."""
+    m, X, _ = adaptive_fit
+    new = X[5:28] * 1.1
+    want = bt.predict(m, new, se_pred=True, block_size=10)
+    tries = []
+    real = tpredict._ToHost
+
+    def pinned(_):
+        tries.append(real(True))
+        return tries[-1]
+    monkeypatch.setattr(tpredict, "_ToHost", pinned)
+    got = bt.predict(m, new, se_pred=True, block_size=10)
+    assert len(tries) == 1 and tries[0].pinned is False
+    assert np.array_equal(got.predicted, want.predicted)
+    assert np.array_equal(got.se_pred, want.se_pred)
+    spans, _ = _call("predict")
+    assert sum(s.counters.get("host_reads", 0) for s in spans) == 3 + 2 * 3
+
+
+@pytest.mark.parametrize("vcov", [False, True])
+def test_pinned_path_bookkeeping_on_the_cpu(adaptive_fit, monkeypatch, vcov):
+    """The pinned path with its pinned allocation stood in for on the
+    CPU: the same arrays as the pageable path, bit for bit, C-contiguous
+    and writable; one host read a ``to_host`` span; every byte to the host
+    counted as pinned."""
+    m, X, _ = adaptive_fit
+    new = X[40:57] + 0.05
+    want = bt.predict(m, new, se_pred=True, materialize_vcov=vcov)
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k:
+                        empty(*a, **k))
+    real = tpredict._ToHost
+    monkeypatch.setattr(tpredict, "_ToHost", lambda _: real(True))
+    got = bt.predict(m, new, se_pred=True, materialize_vcov=vcov)
+    for name in ("predicted", "se_pred", "newdataK", "vcov_est_pred"):
+        a, b = getattr(got, name), getattr(want, name)
+        if b is None:
+            assert a is None and not vcov
+            continue
+        assert np.array_equal(a, b), name
+        assert a.dtype == np.float64 and a.flags.c_contiguous
+        assert a.flags.writeable
+    spans, _ = _call("predict")
+    to_host = [s for s in spans if s.name == "to_host"]
+    assert [s.counters["host_reads"] for s in to_host] == [1]
+    copied = (got.predicted, got.vcov_est_pred if vcov else got.se_pred,
+              got.newdataK)
+    assert to_host[0].counters["bytes_to_host_pinned"] == \
+        to_host[0].counters["bytes_to_host"] == sum(a.nbytes for a in copied)
 
 
 def test_host_reads_counts_each_read():

@@ -19,9 +19,9 @@ class Loop:
     kind = "fit"
 
     def __init__(self, program, config: dict, traffic: dict, seed: int,
-                 device, precision: Optional[str] = None):
+                 device, precision: Optional[str] = None, chips: int = 1):
         self.program, self.config, self.traffic = program, config, traffic
-        self.device = device
+        self.device, self.chips = device, chips
         self.opts = loops.fit_options(config, precision)
         self.pool = [data.dataset(config, seed, i)
                      for i in range(int(config.get("pool", 1)))]
@@ -41,7 +41,7 @@ class Loop:
         t1 = time.perf_counter()
         with loops.span("summary"):
             s = self.program.summary(m)
-        loops.sync(self.device)
+        loops.sync(self.device, self.chips)
         t2 = time.perf_counter()
         return loops.Job(index, t2 - t0, t0,
                          {"fit": t1 - t0, "summary": t2 - t1}, m.timings,

@@ -37,9 +37,9 @@ class Loop:
     kind = "predict"
 
     def __init__(self, program, config: dict, traffic: dict, seed: int,
-                 device, precision: Optional[str] = None):
+                 device, precision: Optional[str] = None, chips: int = 1):
         self.program, self.config, self.traffic = program, config, traffic
-        self.device, self.seed = device, seed
+        self.device, self.seed, self.chips = device, seed, chips
         self.opts = loops.fit_options(config, precision)
         self.precision = self.opts.get("precision", "highest")
         self.y, self.X = data.dataset(config, seed, 0)
@@ -81,7 +81,7 @@ class Loop:
         t0 = time.perf_counter()
         with loops.span("predict"):
             p = self._predict(new)
-        loops.sync(self.device)
+        loops.sync(self.device, self.chips)
         t1 = time.perf_counter()
         return loops.Job(index, t1 - t0, t0, {"predict": t1 - t0}, None,
                          {"predicted": p.predicted, "se": p.se_pred,

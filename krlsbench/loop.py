@@ -5,8 +5,12 @@ module ``kinds/<kind>.py`` that makes each job of that kind from the seed
 and checks what the jobs produced (``Loop`` and ``check``); the rest of the
 mix is that module's parameters. One caller sends a job, waits for its
 answer and sends the next (a closed loop of one client). Every job's
-latency runs from the call to the moment its answer is on the host and the
-card has finished its work.
+latency runs from the call to the moment its answer is on the host and
+every card of the cell has finished its work.
+
+A kind's ``Loop`` takes ``(program, config, traffic, seed, device,
+precision=None, chips=1)``: ``chips`` is the cell's card count, and
+``cards(device, chips)`` the cards it holds.
 """
 from __future__ import annotations
 
@@ -38,9 +42,19 @@ def span(name: str):
     return torch.profiler.record_function(f"krlsbench.{name}")
 
 
-def sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+def cards(device, chips: int = 1) -> list:
+    """The cards of a cell of ``chips``: ``device`` itself for one, else
+    index 0 to ``chips`` - 1 of its type."""
+    if chips == 1:
+        return [device]
+    return [torch.device(torch.device(device).type, i) for i in range(chips)]
+
+
+def sync(device, chips: int = 1) -> None:
+    """Wait until every card of the cell has finished its work."""
+    for d in cards(device, chips):
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def fit_options(config: dict, precision: Optional[str] = None) -> dict:
@@ -72,11 +86,11 @@ def kind(traffic: dict):
 
 
 def make(program, config: dict, traffic: dict, seed: int, device,
-         precision: Optional[str] = None):
+         precision: Optional[str] = None, chips: int = 1):
     """The mix's loop over ``program`` (the package under test, or what
-    stands in its place)."""
+    stands in its place) on the cell's ``chips`` cards."""
     return kind(traffic).Loop(program, config, traffic, seed, device,
-                              precision)
+                              precision, chips)
 
 
 @dataclasses.dataclass
@@ -91,12 +105,19 @@ class Window:
 def drive(loop, seconds: float, on_trace: Optional[Callable] = None,
           trace_seconds: float = 0.0) -> Window:
     """Run jobs back to back until ``seconds`` have passed since the
-    first call. With ``on_trace`` (a context manager factory), the last
-    ``trace_seconds`` of the window run inside it."""
+    first call. With ``on_trace`` (a context manager factory), the jobs
+    that start in the last ``trace_seconds`` of the window run inside it,
+    and the window does not end before the trace has held one whole job
+    attempt, completed or failed. So a job that outlasts the trace part,
+    or the whole window, runs untraced, the trace opens at its end, and
+    the next job runs inside it. Where the jobs are short beside
+    ``trace_seconds``, the trace holds many of them and this rule never
+    acts."""
     jobs: List[Job] = []
     traced: List[Job] = []
     errors: List[str] = []
     failed = 0
+    attempts_traced = 0
     start = time.perf_counter()
     end = start
     index = 0
@@ -105,7 +126,8 @@ def drive(loop, seconds: float, on_trace: Optional[Callable] = None,
     with tracing:
         while True:
             now = time.perf_counter()
-            if now - start >= seconds:
+            if now - start >= seconds and (on_trace is None
+                                            or attempts_traced):
                 break
             if on_trace is not None and not in_trace and \
                     now - start >= seconds - trace_seconds:
@@ -122,5 +144,6 @@ def drive(loop, seconds: float, on_trace: Optional[Callable] = None,
                 if in_trace:
                     traced.append(job)
                 end = job.start + job.latency
+            attempts_traced += in_trace
             index += 1
     return Window(jobs, end - start, failed, errors, traced)

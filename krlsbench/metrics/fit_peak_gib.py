@@ -1,4 +1,4 @@
-"""The device memory peak over the window (torch.cuda.max_memory_allocated after a reset at its start), in GiB."""
+"""The device memory peak over the window (torch.cuda.max_memory_allocated after a reset at its start), in GiB: the largest of any one card of the cell."""
 
 
 def read(run):

@@ -68,9 +68,10 @@ def untraced_wall_s(run) -> Optional[float]:
 
 
 def idle_pct(run) -> Optional[float]:
-    """100 x (1 - the traced jobs' device busy time over the wall time
-    they take untraced): the profiler's own host cost, which stretches
-    the traced part of the window, is left out."""
+    """100 x (1 - the traced jobs' device busy time, the mean over the
+    cell's cards, over the wall time they take untraced): the profiler's
+    own host cost, which stretches the traced part of the window, is left
+    out."""
     if run.trace is None:
         return None
     wall = untraced_wall_s(run)

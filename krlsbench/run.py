@@ -14,8 +14,10 @@ beside its limit (also the last lines of standard error).
 
 With ``--trace 0`` the metrics are the cell's end-to-end metrics; with
 ``--trace 1`` its per-layer metrics, read from a profiled last part of
-the window (``trace_seconds`` of the traffic mix) and from the phases of
-the jobs before it.
+the window (``trace_seconds`` of the traffic mix, and at least one whole
+job) and from the phases of the jobs before it. The memory peak, the wait
+at each job's end and the device's busy time take every card of the
+cell.
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ class Run:
     kind: str
     setup_s: float
     window: object                  # loop.Window
-    peak_window_bytes: int
+    peak_window_bytes: int          # the largest of any one card
     trace: Optional[object]         # trace.TraceSummary
 
 
@@ -77,6 +79,20 @@ def card_line() -> str:
             timeout=60).stdout.strip().replace("\n", "; ")
     except (OSError, subprocess.SubprocessError):
         return "not measured"
+
+
+def card_peaks(devices, reset: bool = False) -> list:
+    """Each card's memory peak since its last reset; with ``reset``, read
+    once each card has finished its work, and reset."""
+    import torch
+    if reset:
+        for d in devices:
+            torch.cuda.synchronize(d)
+    peaks = [torch.cuda.max_memory_allocated(d) for d in devices]
+    if reset:
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
+    return peaks
 
 
 def execute(cell, seed: int, seconds: float, trace: bool, device: str,
@@ -92,21 +108,23 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str,
 
     log = log or (lambda s: print(s, file=sys.stderr, flush=True))
     cuda = torch.device(device).type == "cuda"
-    runner = loops.make(bk, cell.config, cell.traffic, seed, device)
-    tracer = Tracer() if trace else None
+    devices = loops.cards(device, cell.chips)
+    runner = loops.make(bk, cell.config, cell.traffic, seed, device,
+                        chips=cell.chips)
+    tracer = Tracer(cell.chips) if trace else None
     runner.warm_up()
     if tracer is not None:
         tracer.warm_up()
-    if cuda:
-        torch.cuda.synchronize()
-        setup_peak = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
+    setup_peaks = card_peaks(devices, reset=True) if cuda else [0]
     setup_s = time.time() - t0
     window = loops.drive(runner, seconds,
                          tracer.window if tracer else None,
                          float(cell.traffic.get("trace_seconds", 3.0)))
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = card_peaks(devices) if cuda else [0]
+    peak = max(peaks)
+    t_reduce = time.perf_counter()
     summary = tracer.summary(window.traced) if tracer else None
+    t_reduce = time.perf_counter() - t_reduce
     run = Run(cell.name, runner.kind, setup_s, window, peak, summary)
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
@@ -120,6 +138,10 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str,
     log(f"window: {len(window.jobs)} {runner.kind} jobs in "
         f"{window.seconds:.4f} s, {window.failed} failed"
         + (f" ({len(window.traced)} traced)" if trace else ""))
+    log(f"memory peaks by card: set-up {setup_peaks}, window {peaks}")
+    if summary is not None:
+        log(f"trace: busy {summary.card_busy_s} s by card of "
+            f"{summary.window_s} s, reduced in {t_reduce:.3f} s")
     for e in window.errors[:5]:
         log(f"failed: {e}")
     # the program's state goes before the reference runs, so that the
@@ -150,7 +172,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str,
             "platform": "gpu" if cuda else "cpu",
             "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
             "count": cell.chips,
-            "memory_peak_bytes": max(setup_peak, peak) if cuda else 0,
+            "memory_peak_bytes": max(setup_peaks + peaks),
         },
     }
     if summary is not None:

@@ -58,7 +58,8 @@ from krlsbench import data, loop as loops
 class Loop:
     kind = "refit"
 
-    def __init__(self, program, config, traffic, seed, device, precision):
+    def __init__(self, program, config, traffic, seed, device, precision,
+                 chips):
         self.y, self.X = data.dataset(config, seed, 0)
 
     def warm_up(self):
@@ -221,25 +222,59 @@ def test_the_idle_share_is_over_the_untraced_time_of_the_same_work():
 
 
 class _Ev:
-    def __init__(self, name, a, b, cuda):
+    """A raw profiler event (the accessors of ``_KinetoEvent``), its times
+    given in microseconds from the trace's start."""
+    T0 = 10 ** 12
+
+    def __init__(self, name, a, b, cuda, card=0, note=False):
         import torch
-        self.name = name
-        self.time_range = types.SimpleNamespace(start=a, end=b)
-        self.device_type = (torch.autograd.DeviceType.CUDA if cuda
-                            else torch.autograd.DeviceType.CPU)
+        self._name, self._a, self._b, self._card = name, a, b, card
+        self._note = note
+        self._type = (torch.autograd.DeviceType.CUDA if cuda
+                      else torch.autograd.DeviceType.CPU)
+
+    def name(self):
+        return self._name
+
+    def start_ns(self):
+        return self.T0 + round(self._a * 1000)
+
+    def end_ns(self):
+        return self.T0 + round(self._b * 1000)
+
+    def device_type(self):
+        return self._type
+
+    def device_index(self):
+        return self._card
+
+    def is_user_annotation(self):
+        return self._note
+
+    def is_hidden_event(self):
+        return False
+
+
+def _profiled(evs):
+    """A stand-in for a stopped ``torch.profiler.profile`` that kept
+    ``evs``."""
+    result = types.SimpleNamespace(events=lambda: evs,
+                                   trace_start_ns=lambda: _Ev.T0)
+    return types.SimpleNamespace(
+        profiler=types.SimpleNamespace(kineto_results=result))
 
 
 def test_trace_reduction_busy_idle_and_labels():
     t = trace.Tracer()
     t.works["k1"] = [roofline.k1_work(1000, 1000, 10)]
-    evs = [_Ev("krlsbench.fit", 0, 100, False),
-           _Ev("krlsbench.summary", 100, 120, False),
-           _Ev("krlsbench.fit", 0, 100, True),       # an annotation: no work
+    evs = [_Ev("krlsbench.fit", 0, 100, False, note=True),
+           _Ev("krlsbench.summary", 100, 120, False, note=True),
+           _Ev("krlsbench.fit", 0, 100, True, note=True),  # no work
            _Ev("void gauss_tile_kernel<64, 64>(...)", 5, 15, True),
            _Ev("Memcpy HtoD", 10, 30, True),
            _Ev("ampere_sgemm", 60, 70, True),
            _Ev("late kernel", 115, 130, True)]
-    t.prof = types.SimpleNamespace(events=lambda: evs)
+    t.prof = _profiled(evs)
     job = loop.Job(0, 1.2e-4, 0.0, {}, [{"phase": "kernel", "seconds": 4e-5},
                                         {"phase": "eigendecomposition",
                                          "seconds": 6e-5}])

@@ -642,7 +642,7 @@ def fit(y, X, *, precision: str = "highest",
         device = kwargs["mesh"].first_device
         devices = kwargs["mesh"].local_devices
     with matmul_precision(precision), trace(trace_dir, device), \
-            progress.span("fit", device=progress.one_card(devices)):
+            progress.span("fit", device=progress.cards(devices)):
         model = _fit_impl(y, X, precision=precision, **kwargs)
     if model_subfolder_name is not None:
         from .persistence import save_model

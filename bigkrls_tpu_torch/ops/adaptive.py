@@ -29,7 +29,7 @@ import torch
 
 from ..parallel.sharded import (ShardedTensor, block_product, commit,
                                 fetch_region, fetch_rows, inner, map_blocks,
-                                mesh_of, replicate, rows_map, trace)
+                                mesh_of, move, replicate, rows_map, trace)
 from ..types import Eigensystem
 from ..utils import progress
 from .eig import (_NAN_EIG_MSG, _krylov_geometry, _subspace_iteration,
@@ -207,9 +207,12 @@ def _deflated_moments(K, vals, vecs):
     """m₁..m₅ = tr(Rʲ) of the deflated residual R = K − Q̂Λ̂Q̂ᵀ: two N×N
     products (R², R³ = R²·R) and Frobenius inner products. For a
     block-sharded K, R is formed block by block and the products are
-    block products (:func:`_deflated_moments_sharded`)."""
+    block products (:func:`_deflated_moments_sharded`), timed as the span
+    ``moments`` from an event of its own (the Krylov basis before it is
+    its parent's work)."""
     if isinstance(K, ShardedTensor):
-        return _deflated_moments_sharded(K, vals, vecs)
+        with progress.span("moments", mark=True):
+            return _deflated_moments_sharded(K, vals, vecs)
     R = K - (vecs * vals[None, :]) @ vecs.T
     R = 0.5 * (R + R.T)
     R2 = R @ R
@@ -239,7 +242,8 @@ def _deflated_moments_sharded(K, vals, vecs):
         qc = {c: vecs[c[0]:c[1]] for c in K.col_bounds}
 
     def deflate(i, j, blk, rows, cols):
-        return blk - (ql[rows].to(blk.device) @ qc[cols].to(blk.device).T)
+        return blk - (move(ql[rows], blk.device)
+                      @ move(qc[cols], blk.device).T)
 
     R0 = map_blocks(K, deflate)
     tr = fetch_region(R0, [(R0.owner(k), c0, c1, r0, r1)
@@ -247,7 +251,7 @@ def _deflated_moments_sharded(K, vals, vecs):
                            for r0, r1, c0, c1 in [R0.key_bounds(k)]])
 
     def symmetrize(i, j, blk, rows, cols):
-        t = tr[(cols[0], cols[1], rows[0], rows[1])].to(blk.device)
+        t = move(tr[(cols[0], cols[1], rows[0], rows[1])], blk.device)
         s = blk + t.T
         del t
         return s.mul_(0.5)

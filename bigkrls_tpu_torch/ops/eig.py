@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..parallel.sharded import (ShardedTensor, collect, commit, dense, gram,
-                                mesh_of, place, replicate, rows_map,
+                                mesh_of, move, place, replicate, rows_map,
                                 rows_reduce)
 from ..types import Eigensystem
 from ..utils.progress import RECORDER, count, span
@@ -90,7 +90,7 @@ def _tsqr(W):
                                               mode="reduced")[0])
     offs = np.concatenate([[0], np.cumsum([s[0] for s in shapes])])
     shards = [None if f is None else
-              f[0] @ Q2[offs[i]:offs[i + 1]].to(f[0].device)
+              f[0] @ move(Q2[offs[i]:offs[i + 1]], f[0].device)
               for i, f in enumerate(facs)]
     return ShardedTensor(W.mesh, "row", (n, Q2.shape[1]), shards, W.dtype)
 

@@ -9,7 +9,11 @@ by point-to-point sends (:func:`exchange`); reductions over shards
 all-gather the per-shard partials (:func:`all_partials`) and sum them in
 shard order on every process, and the small results every process uses
 are process 0's, broadcast (:func:`broadcast_from_zero`), so no process
-takes another branch. The backend is gloo for CPU shards and NCCL for
+takes another branch. Each of them counts the bytes this process sends to
+another's card (``sharded.count_between_cards``): a send whole, a
+collective as its ring form moves it (an all-reduce 2(W - 1)/W of the
+buffer, an all-gather W - 1 times this process's part, a broadcast the
+buffer once, at its source). The backend is gloo for CPU shards and NCCL for
 CUDA ones.
 
 The JAX semantics are kept: with no arguments and no cluster environment
@@ -208,14 +212,17 @@ def all_partials(partials, owners, shapes, dtype, device):
     comm = comm_device()
     sizes = [int(np.prod(s)) for s in shapes]
     offs = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+    from .sharded import count_between_cards, move
     mine = torch.zeros(int(offs[-1]), dtype=dtype, device=comm)
     for s, p in enumerate(partials):
         if p is not None:
-            mine[offs[s]:offs[s + 1]] = p.reshape(-1).to(comm)
-    bufs = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+            mine[offs[s]:offs[s + 1]] = move(p.reshape(-1), comm)
+    world = dist.get_world_size()
+    bufs = [torch.empty_like(mine) for _ in range(world)]
+    count_between_cards((world - 1) * mine.numel() * mine.element_size())
     dist.all_gather(bufs, mine)
-    return [bufs[int(owners[s])][offs[s]:offs[s + 1]].reshape(shapes[s])
-            .to(device) for s in range(len(shapes))]
+    return [move(bufs[int(owners[s])][offs[s]:offs[s + 1]]
+                 .reshape(shapes[s]), device) for s in range(len(shapes))]
 
 
 def broadcast_from_zero(tensors):
@@ -223,13 +230,28 @@ def broadcast_from_zero(tensors):
     results a mesh fit computes once and replicates (a Ritz ``eigh``, a
     Cholesky factor, λ*), so that no process takes another branch."""
     import torch.distributed as dist
+
+    from .sharded import count_between_cards, move
     comm = comm_device()
     out = []
     for t in tensors:
-        buf = t.detach().to(comm).contiguous().clone()
+        buf = move(t.detach(), comm).contiguous().clone()
+        if dist.get_rank() == 0:
+            count_between_cards(buf.numel() * buf.element_size())
         dist.broadcast(buf, src=0)
-        out.append(buf.to(t.device))
+        out.append(move(buf, t.device))
     return out
+
+
+def all_reduce(buf) -> None:
+    """``dist.all_reduce(buf)`` (a sum, in place), its bytes counted."""
+    import torch.distributed as dist
+
+    from .sharded import count_between_cards
+    world = dist.get_world_size()
+    count_between_cards(2 * (world - 1) * buf.numel() * buf.element_size()
+                        // world)
+    dist.all_reduce(buf)
 
 
 def exchange(sends, recvs):
@@ -237,8 +259,12 @@ def exchange(sends, recvs):
     (buffer, rank), listed in the same global order on every process so
     that each pair's messages match in turn."""
     import torch.distributed as dist
+
+    from .sharded import count_between_cards, move
     comm = comm_device()
-    keep = [(t.to(comm).contiguous(), r) for t, r in sends]
+    keep = [(move(t, comm).contiguous(), r) for t, r in sends]
+    for t, _ in keep:
+        count_between_cards(t.numel() * t.element_size())
     ops = ([dist.P2POp(dist.isend, t, r) for t, r in keep]
            + [dist.P2POp(dist.irecv, b, r) for b, r in recvs])
     if ops:

@@ -30,7 +30,8 @@ import functools
 import numpy as np
 import torch
 
-from .sharded import Mesh, ShardedTensor, _rank, dense, spans_processes
+from .sharded import (Mesh, ShardedTensor, _rank, count_between_cards, dense,
+                      move, spans_processes)
 
 
 def make_ring_mesh(devices=None) -> Mesh:
@@ -59,7 +60,7 @@ def _rotate(blocks, mesh: Mesh):
     processes the tensors travel by ``batch_isend_irecv``."""
     d = mesh.size
     if not spans_processes(mesh):
-        return [tuple(t.to(mesh.devices[k]) for t in blocks[(k + 1) % d])
+        return [tuple(move(t, mesh.devices[k]) for t in blocks[(k + 1) % d])
                 for k in range(d)]
     import torch.distributed as dist
 
@@ -74,7 +75,7 @@ def _rotate(blocks, mesh: Mesh):
         src = (k + 1) % d
         owner_k, owner_src = int(mesh.processes[k]), int(mesh.processes[src])
         if owner_k == me and owner_src == me:
-            new[k] = tuple(t.to(mesh.devices[k]) for t in blocks[src])
+            new[k] = tuple(move(t, mesh.devices[k]) for t in blocks[src])
         elif owner_k == me:
             # same shapes as this shard's own tuple: ring blocks are equal
             new[k] = tuple(torch.empty_like(t, device=comm)
@@ -82,13 +83,15 @@ def _rotate(blocks, mesh: Mesh):
             ops += [dist.P2POp(dist.irecv, t, owner_src) for t in new[k]]
             landed.append(k)
         elif owner_src == me:
-            ops += [dist.P2POp(dist.isend, t.to(comm), owner_k)
-                    for t in blocks[src]]
+            for t in blocks[src]:
+                t = move(t, comm)
+                count_between_cards(t.numel() * t.element_size())
+                ops.append(dist.P2POp(dist.isend, t, owner_k))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     for k in landed:
-        new[k] = tuple(t.to(mesh.devices[k]) for t in new[k])
+        new[k] = tuple(move(t, mesh.devices[k]) for t in new[k])
     return new
 
 
@@ -103,7 +106,7 @@ def _ring_blocks(X, mesh: Mesh, npad: int):
         Xp[:n] = X
         X = Xp
     b = npad // mesh.size
-    return [X[k * b:(k + 1) * b].to(mesh.devices[k]) if mesh.local(k)
+    return [move(X[k * b:(k + 1) * b], mesh.devices[k]) if mesh.local(k)
             else None for k in range(mesh.size)]
 
 

@@ -44,6 +44,13 @@ Every whole-tensor gather goes through :meth:`ShardedTensor.full` or
 :func:`host_gather`, and records its label and shape in every active
 :func:`record_gathers` log; ``GATHER_ALLOWED`` names the ones a mesh fit
 may make.
+
+Every copy of a shard, block or slab from one card to another goes
+through :func:`move`, and every transfer to another process's card is
+counted by :func:`count_between_cards` (``distributed.py``): the bytes go
+into the open span's counter ``bytes_between_cards``
+(``utils/progress.py``). A copy within one card, and one between a card
+and the host, counts nothing.
 """
 from __future__ import annotations
 
@@ -130,6 +137,33 @@ def _note_gather(label: str, shape) -> None:
 def _caller_label() -> str:
     frame = sys._getframe(2)
     return f"{frame.f_globals.get('__name__', '?')}.{frame.f_code.co_name}"
+
+
+# ---------------------------------------------------------------------------
+# copies between cards
+# ---------------------------------------------------------------------------
+
+def _card(x):
+    """(type, index) of a device, or of the device a tensor lies on."""
+    d = x.device if isinstance(x, torch.Tensor) else torch.device(x)
+    return d.type, 0 if d.index is None else d.index
+
+
+def count_between_cards(nbytes: int) -> None:
+    """Add ``nbytes`` this process sends to another process's card to the
+    open span's ``bytes_between_cards``."""
+    progress.count("bytes_between_cards", int(nbytes))
+
+
+def move(t: torch.Tensor, device) -> torch.Tensor:
+    """``t.to(device)``, its bytes counted (:func:`count_between_cards`)
+    where the copy goes from one card to another: two devices of one type,
+    so a copy within one card, or between a card and the host, counts
+    nothing."""
+    a, b = _card(t), _card(device)
+    if a != b and a[0] == b[0]:
+        count_between_cards(t.numel() * t.element_size())
+    return t.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -349,13 +383,13 @@ class ShardedTensor:
         mesh that spans processes every process gets it."""
         device = self.mesh.first_device if device is None else device
         if self.spec == "replicated":
-            return self.shards[0].to(device)
+            return move(self.shards[0], device)
         _note_gather(label or _caller_label(), self.shape)
         if spans_processes(self.mesh):
             return _gather_across(self, device)
         if self.spec == "row":
-            return torch.cat([t.to(device) for t in self.shards], dim=0)
-        return torch.cat([torch.cat([t.to(device) for t in row], dim=1)
+            return torch.cat([move(t, device) for t in self.shards], dim=0)
+        return torch.cat([torch.cat([move(t, device) for t in row], dim=1)
                           for row in self.shards], dim=0)
 
     def region(self, r0: int, r1: int, c0: int, c1: int, device=None):
@@ -366,7 +400,7 @@ class ShardedTensor:
         device = self.mesh.first_device if device is None else device
         ranks = sorted({int(p) for p in self.mesh.processes.flat})
         got = fetch_region(self, [(r, r0, r1, c0, c1) for r in ranks])
-        return got[(r0, r1, c0, c1)].to(device)
+        return move(got[(r0, r1, c0, c1)], device)
 
     def __matmul__(self, B):
         return matmul(self, B)
@@ -379,20 +413,18 @@ class ShardedTensor:
 def _gather_across(x: ShardedTensor, device):
     """``full()`` on a mesh that spans processes: each process writes its
     shards into a zero buffer and ``all_reduce`` sums the buffers."""
-    import torch.distributed as dist
-
-    from .distributed import comm_device
+    from .distributed import all_reduce, comm_device
     buf = torch.zeros(tuple(x.shape), dtype=x.dtype, device=comm_device())
     for key in x.keys():
         t = x.shard(key)
         if t is not None:
             r0, r1, c0, c1 = x.key_bounds(key)
             if x.spec == "block":
-                buf[r0:r1, c0:c1] = t.to(buf.device)
+                buf[r0:r1, c0:c1] = move(t, buf.device)
             else:
-                buf[r0:r1] = t.to(buf.device)
-    dist.all_reduce(buf)
-    return buf.to(device)
+                buf[r0:r1] = move(t, buf.device)
+    all_reduce(buf)
+    return move(buf, device)
 
 
 def place(arr, mesh: Mesh, spec: str) -> ShardedTensor:
@@ -406,16 +438,16 @@ def place(arr, mesh: Mesh, spec: str) -> ShardedTensor:
     a, b = _grid(mesh)
     if spec == "replicated":
         return ShardedTensor(mesh, spec, arr.shape,
-                             [arr.to(mesh.first_device)])
+                             [move(arr, mesh.first_device)])
     rb = bounds(arr.shape[0], a)
     if spec == "row":
-        shards = [arr[r0:r1].to(_device_of(mesh, i)) if _local(mesh, i)
+        shards = [move(arr[r0:r1], _device_of(mesh, i)) if _local(mesh, i)
                   else None for i, (r0, r1) in enumerate(rb)]
         return ShardedTensor(mesh, spec, arr.shape, shards, arr.dtype)
     if spec != "block":
         raise ValueError(f"spec must be one of {SPECS}, got {spec!r}")
     cb = bounds(arr.shape[1], b)
-    shards = [[arr[r0:r1, c0:c1].contiguous().to(_device_of(mesh, i, j))
+    shards = [[move(arr[r0:r1, c0:c1].contiguous(), _device_of(mesh, i, j))
                if _local(mesh, i, j) else None
                for j, (c0, c1) in enumerate(cb)]
               for i, (r0, r1) in enumerate(rb)]
@@ -470,6 +502,8 @@ def host_gather(arr, label: str = "host_gather",
                 buf = (t.to(comm_device()).contiguous() if owner == me else
                        torch.empty(arr.key_shape(key), dtype=arr.dtype,
                                    device=comm_device()))
+                if owner == me:
+                    count_between_cards(buf.numel() * buf.element_size())
                 dist.broadcast(buf, src=owner)
                 t = buf
             elif owner != dst:
@@ -571,7 +605,7 @@ def fetch_rows(x: ShardedTensor, requests):
             if lo < hi:
                 parts.append(got[i][lo - a0:hi - a0])
         out[(r0, r1)] = (parts[0] if len(parts) == 1 else
-                         torch.cat([p.to(parts[0].device) for p in parts]))
+                         torch.cat([move(p, parts[0].device) for p in parts]))
     return out
 
 
@@ -603,9 +637,9 @@ def fetch_region(x: ShardedTensor, requests):
                     cols.append(got[(i, j)][lo - a0:hi - a0,
                                             clo - b0:chi - b0])
             rows.append(cols[0] if len(cols) == 1 else
-                        torch.cat([c.to(cols[0].device) for c in cols], 1))
+                        torch.cat([move(c, cols[0].device) for c in cols], 1))
         out[(r0, r1, c0, c1)] = (rows[0] if len(rows) == 1 else torch.cat(
-            [r.to(rows[0].device) for r in rows], 0))
+            [move(r, rows[0].device) for r in rows], 0))
     return out
 
 
@@ -636,7 +670,7 @@ def _shard_args(args, i, device, meta: bool = False):
             out.append(torch.empty(a.key_shape(i), dtype=a.dtype,
                                    device="meta") if meta else a.shards[i])
         elif isinstance(a, torch.Tensor):
-            out.append(a.to("meta") if meta else a.to(device))
+            out.append(a.to("meta") if meta else move(a, device))
         else:
             out.append(a)
     return out
@@ -697,7 +731,7 @@ def _all_partials(x, parts, shapes, dtype):
     local ones moved there, and across processes the owners' copies."""
     device = x.mesh.first_device
     if not spans_processes(x.mesh):
-        return [p.to(device) for p in parts]
+        return [move(p, device) for p in parts]
     from .distributed import all_partials
     return all_partials(parts, [x.owner(k) for k in x.keys()], shapes,
                         dtype, device)
@@ -790,7 +824,7 @@ def matmul(K: ShardedTensor, B):
     if K.spec == "row":
         if isinstance(B, ShardedTensor):
             raise ValueError("a row-sharded K takes a dense B")
-        shards = [None if t is None else t @ B.to(t.device)
+        shards = [None if t is None else t @ move(B, t.device)
                   for t in K.shards]
         Y = ShardedTensor(mesh, "row", (K.shape[0], m), shards, K.dtype)
     else:
@@ -803,7 +837,8 @@ def matmul(K: ShardedTensor, B):
         for key in K.keys():
             blk = K.shard(key)
             if blk is not None:
-                parts[key] = blk @ slabs[K.col_bounds[key[1]]].to(blk.device)
+                parts[key] = blk @ move(slabs[K.col_bounds[key[1]]],
+                                        blk.device)
         a, b = len(K.row_bounds), len(K.col_bounds)
         P = ShardedTensor(mesh, "block", (K.shape[0], m * b),
                           [[parts.get((i, j)) for j in range(b)]
@@ -818,7 +853,7 @@ def matmul(K: ShardedTensor, B):
             dev = _device_of(mesh, i)
             y = None
             for j in range(len(K.col_bounds)):
-                part = got[(i, j)].to(dev)
+                part = move(got[(i, j)], dev)
                 y = part if y is None else y + part
             shards.append(y)
         Y = ShardedTensor(mesh, "row", (K.shape[0], m), shards, K.dtype)
@@ -858,8 +893,8 @@ def block_product(A: ShardedTensor, B: ShardedTensor) -> ShardedTensor:
             dev = _device_of(A.mesh, i, j)
             out = None
             for k0, k1 in A.col_bounds:
-                a = arows[(*A.row_bounds[i], k0, k1)].to(dev)
-                b = regions[(k0, k1, c0, c1)].to(dev)
+                a = move(arows[(*A.row_bounds[i], k0, k1)], dev)
+                b = move(regions[(k0, k1, c0, c1)], dev)
                 part = a @ b
                 del a, b
                 out = part if out is None else out.add_(part)
@@ -954,13 +989,13 @@ def sharded_gauss_kernel(mesh: Mesh, impl: str = "auto"):
                 continue
             (r0, r1), (c0, c1) = rb[i], cb[j]
             dev = _device_of(mesh, i, j)
-            Xi = slabs[(r0, r1)].to(dev)
+            Xi = move(slabs[(r0, r1)], dev)
             if (r0, r1) == (c0, c1):
                 shards[i][j] = tile(Xi, Xi, float(sigma), True)
             else:
                 shards[i][j] = _fill_diagonal_overlap(
-                    tile(Xi, slabs[(c0, c1)].to(dev), float(sigma), False),
-                    r0, r1, c0, c1)
+                    tile(Xi, move(slabs[(c0, c1)], dev), float(sigma),
+                         False), r0, r1, c0, c1)
         return ShardedTensor(mesh, "block", (n, n), shards, X_std.dtype)
 
     return build

@@ -159,7 +159,7 @@ def predict(model: KRLSModel, newdata, se_pred: bool = False,
     mesh = mesh_of(getattr(model.vcov_c_factored, "Q", None), model.K)
     devices = [device] if mesh is None else mesh.local_devices
     with matmul_precision(precision), \
-            progress.span("predict", device=progress.one_card(devices)) as s:
+            progress.span("predict", device=progress.cards(devices)) as s:
         return _predict_impl(model, newdata, se_pred, correct_SE, ytest,
                              materialize_vcov, block_size, mesh, s)
 

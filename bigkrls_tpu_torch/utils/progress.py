@@ -9,14 +9,19 @@ of the call), its host interval on ``time.perf_counter`` and its counters
 at the port's read points whatever the device: reads to the host, and
 copies from pageable host memory to the device, which wait for the
 stream too; ``bytes_to_host``, ``bytes_to_device``: ``predict``'s
-copies). On one CUDA card every span under a call's root also holds its
-interval on the device clock, between CUDA events (from a per-process
-pool) recorded on the call's stream, one where the root opens and one
-where each span closes (:class:`Recorder`), read once the call has ended:
-the call has waited for its results on the host by then, so the read adds
-no synchronize. The root itself, the CPU and a mesh of several cards
-have the host interval alone. Finished calls go into one bounded log in
-memory (:func:`spans`); nothing is written to disk.
+copies; ``bytes_between_cards``: the bytes a mesh copies from one card to
+another, ``parallel/sharded.py``). On CUDA cards every span under a
+call's root also holds its interval on the device clock, between CUDA
+events (from a per-process pool of each card) recorded on the call's
+stream, one where the root opens and one where each span closes
+(:class:`Recorder`), read once the call has ended: the call has waited
+for its results on the host by then, so the read adds no synchronize. A
+call on several cards (a mesh) keeps one such line of events on each
+card's current stream, and a span holds its interval on each card
+(``device_s_by_card``), its ``device_s`` the longest of them: the card
+that sets the pace. The root itself and the CPU have the host interval
+alone. Finished calls go into one bounded log in memory (:func:`spans`);
+nothing is written to disk.
 
 The recorder is always on and cheap: no synchronize, no logging, no
 device allocation. While the program's own :func:`trace` runs, each span
@@ -37,7 +42,8 @@ import contextlib
 import itertools
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import (Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -57,12 +63,15 @@ class Span:
     parents' (``"fit/eigendecomposition/krylov"``); ``parent`` and
     ``call`` are span ids; ``t0``, ``t1`` the host interval;
     ``device_s`` the device interval in seconds (None where there is
-    none); ``counters`` what was counted while it was the innermost open
-    span."""
+    none); ``device_s_by_card`` the interval on each card of a call on
+    several, in the call's card order (None on one card), ``device_s``
+    their largest; ``counters`` what was counted while it was the
+    innermost open span."""
 
     __slots__ = ("name", "path", "id", "parent", "call", "t0", "t1",
-                 "device_s", "counters", "_root", "_members", "_stream",
-                 "_free", "_e0", "_e1", "_last", "_range")
+                 "device_s", "device_s_by_card", "counters", "_root",
+                 "_members", "_stream", "_free", "_e0", "_e1", "_last",
+                 "_marked", "_range")
 
     @property
     def host_s(self) -> float:
@@ -93,6 +102,7 @@ class Record(NamedTuple):
     t1: float
     device_s: Optional[float]
     counters: Dict[str, int]
+    device_s_by_card: Optional[Tuple[float, ...]] = None
 
     @property
     def host_s(self) -> float:
@@ -104,13 +114,13 @@ class Record(NamedTuple):
         return self.host_s if self.device_s is None else self.device_s
 
 
-def one_card(devices) -> Optional[torch.device]:
-    """The one CUDA device among ``devices`` (repeats allowed), or None
-    where there is none or more than one: the device a call's spans are
-    timed on."""
-    cuda = list(dict.fromkeys(torch.device(d) for d in devices
-                              if torch.device(d).type == "cuda"))
-    return cuda[0] if len(cuda) == 1 else None
+def cards(devices) -> Optional[Tuple[torch.device, ...]]:
+    """The distinct CUDA devices among ``devices``, in order (virtual
+    shards that repeat one card are that card), or None where there is
+    none: the cards a call's spans are timed on."""
+    cuda = tuple(dict.fromkeys(torch.device(d) for d in devices
+                               if torch.device(d).type == "cuda"))
+    return cuda or None
 
 
 class Recorder:
@@ -122,7 +132,11 @@ class Recorder:
     interval runs from the call's latest event when it opens (its
     parent's start or the previous span's end) to its own: spans are laid
     back to back, and device work enqueued between two of them counts in
-    the later one."""
+    the later one. A span opened with ``mark`` records one more event
+    where it opens, so that its interval holds its own work alone, not
+    what its parent enqueued before it. A call on several cards keeps one
+    line on each card's stream, recorded at the same points: its events
+    are tuples, one event of each card's pool a card."""
 
     def __init__(self, size: int = LOG_SIZE):
         # finished spans as tuples of numbers and strings, which the
@@ -145,26 +159,37 @@ class Recorder:
 
     @staticmethod
     def _record(root: Span):
-        """A free event of the call's card, recorded on its stream."""
+        """A free event of the call's card, recorded on its stream; on
+        several cards a tuple of one such event a card."""
+        if isinstance(root._stream, tuple):
+            return tuple(Recorder._record_on(stream, pool)
+                         for stream, pool in zip(root._stream, root._free))
+        return Recorder._record_on(root._stream, root._free)
+
+    @staticmethod
+    def _record_on(stream, pool):
         try:
-            e = root._free.pop()
+            e = pool.pop()
         except IndexError:
             e = torch.cuda.Event(enable_timing=True)
-        e.record(root._stream)
+        e.record(stream)
         return e
 
-    def open(self, name: str, device=_INHERIT) -> Span:
+    def open(self, name: str, device=_INHERIT, mark: bool = False) -> Span:
         """Open a span under the innermost open one, or as the root of a
         new call. For a root, ``device`` is the CUDA device on whose
-        current stream the call's spans are timed, or None for host
+        current stream the call's spans are timed, a tuple of the CUDA
+        devices of a call on several (:func:`cards`), or None for host
         intervals alone; a span under it is timed as its call is, or not
         at all with ``device=None``. Without an open span and without
         ``device`` (a step called outside ``fit`` and ``predict``) the
-        span is inert: nothing is recorded."""
+        span is inert: nothing is recorded. ``mark``: a timed span under a
+        root starts at an event recorded where it opens."""
         stack = self._stack()
         s = Span()
         s.name, s.counters, s.device_s, s._range = name, {}, None, None
-        s._e0 = s._e1 = None
+        s._e0 = s._e1 = s.device_s_by_card = None
+        s._marked = False
         if stack:
             up = stack[-1]
             s.id, s.parent, s.call = next(self._ids), up.id, up.call
@@ -172,6 +197,9 @@ class Recorder:
                                            up._members, up._root)
             if device is not None:
                 s._e0 = s._root._last      # None in an untimed call
+                if mark and s._e0 is not None:
+                    s._e0 = s._root._last = self._record(s._root)
+                    s._marked = True
         elif device is _INHERIT:
             s.path, s.call = name, None
             return s
@@ -179,7 +207,16 @@ class Recorder:
             s.id = s.call = next(self._ids)
             s.parent, s.path, s._members, s._root = None, name, [], s
             s._stream = s._last = None
-            if device is not None and torch.device(device).type == "cuda" \
+            if isinstance(device, tuple) and len(device) == 1:
+                device = device[0]
+            if isinstance(device, tuple):
+                if torch.cuda.is_available():
+                    s._stream = tuple(torch.cuda.current_stream(d)
+                                      for d in device)
+                    s._free = tuple(self._pool[st.device_index]
+                                    for st in s._stream)
+                    s._e0 = s._last = self._record(s)
+            elif device is not None and torch.device(device).type == "cuda" \
                     and torch.cuda.is_available():
                 s._stream = torch.cuda.current_stream(device)
                 s._free = self._pool[s._stream.device_index]
@@ -222,9 +259,29 @@ class Recorder:
     @staticmethod
     def settle(s: Span) -> None:
         """Read ``s``'s device interval now: its end has passed on the
-        device (the caller has read a result made after it)."""
+        device (the caller has read a result made after it); on several
+        cards its interval on each, ``device_s`` the longest."""
         if s._e1 is not None and s.device_s is None:
-            s.device_s = s._e0.elapsed_time(s._e1) / 1e3
+            if isinstance(s._e1, tuple):
+                s.device_s_by_card = tuple(
+                    a.elapsed_time(b) / 1e3 for a, b in zip(s._e0, s._e1))
+                s.device_s = max(s.device_s_by_card)
+            else:
+                s.device_s = s._e0.elapsed_time(s._e1) / 1e3
+
+    @staticmethod
+    def _passed(last) -> bool:
+        if isinstance(last, tuple):
+            return all(e.query() for e in last)
+        return last.query()
+
+    @staticmethod
+    def _release(pool, e) -> None:
+        if isinstance(e, tuple):
+            for p, ev in zip(pool, e):
+                p.append(ev)
+        else:
+            pool.append(e)
 
     def drain(self, wait: bool) -> None:
         """Move finished calls, oldest first, into the log, each once its
@@ -235,30 +292,34 @@ class Recorder:
                 members = self._pending[0]
                 root = members[-1]
                 last = root._last
-                if last is not None and not last.query():
+                if last is not None and not self._passed(last):
                     if not wait:
                         return
-                    last.synchronize()
+                    for e in (last if isinstance(last, tuple) else (last,)):
+                        e.synchronize()
                 self._pending.popleft()
                 if last is not None:
                     pool = root._free
-                    pool.append(root._e0)
+                    self._release(pool, root._e0)
                     for s in members:
                         if s._e1 is not None:
                             self.settle(s)
-                            pool.append(s._e1)
+                            self._release(pool, s._e1)
+                        if s._marked:
+                            self._release(pool, s._e0)
                 for s in members:
                     s._root = s._members = s._stream = s._free = None
                     s._e0 = s._e1 = s._last = None
                 self.log.extend((s.name, s.path, s.id, s.parent, s.call,
                                  s.t0, s.t1, s.device_s,
-                                 tuple(s.counters.items()))
+                                 tuple(s.counters.items()),
+                                 s.device_s_by_card)
                                 for s in members)
 
     def spans(self) -> List[Record]:
         """Every finished span in the log (see :func:`spans`)."""
         self.drain(wait=True)
-        return [Record(*t[:8], dict(t[8])) for t in self.log]
+        return [Record(*t[:8], dict(t[8]), t[9]) for t in self.log]
 
     def count(self, key: str, n: int = 1) -> None:
         stack = self._stack()
@@ -271,15 +332,15 @@ RECORDER = Recorder()
 
 class span:
     """``with span("krylov") as s:`` records a span under the innermost
-    open one (see :meth:`Recorder.open` for ``device``)."""
+    open one (see :meth:`Recorder.open` for ``device`` and ``mark``)."""
 
-    __slots__ = ("_name", "_device", "_span")
+    __slots__ = ("_name", "_device", "_mark", "_span")
 
-    def __init__(self, name: str, device=_INHERIT):
-        self._name, self._device = name, device
+    def __init__(self, name: str, device=_INHERIT, mark: bool = False):
+        self._name, self._device, self._mark = name, device, mark
 
     def __enter__(self) -> Span:
-        self._span = RECORDER.open(self._name, self._device)
+        self._span = RECORDER.open(self._name, self._device, self._mark)
         return self._span
 
     def __exit__(self, *exc) -> None:
@@ -350,7 +411,10 @@ class PhaseTimer:
 
     def finish(self) -> List[Dict]:
         """The phases; on one card with device intervals, read now (the
-        fit has read results made after its last mark)."""
+        fit has read results made after its last mark). On several cards
+        the host intervals between the synchronized marks."""
+        if len(self.devices) > 1:
+            return self.phases
         timed = [s for s in self._spans if s is not None and s._e1 is not None]
         if timed and not timed[-1]._e1.query():
             timed[-1]._e1.synchronize()

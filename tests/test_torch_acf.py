@@ -12,6 +12,7 @@ import bigkrls_tpu as bk
 import bigkrls_tpu_torch as bt
 from bigkrls_tpu.ops.stats import neffective_acf as jax_neffective_acf
 from bigkrls_tpu_torch.ops.stats import neffective_acf
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -10,6 +10,7 @@ import bigkrls_tpu as bk
 import bigkrls_tpu_torch as bt
 from bigkrls_tpu.ops import adaptive as ja
 from bigkrls_tpu_torch.ops import adaptive as ta
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

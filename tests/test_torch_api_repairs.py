@@ -22,6 +22,7 @@ from bigkrls_tpu_torch.ops.stats import neffective_acf
 from bigkrls_tpu_torch.types import FactoredCovariance
 from bigkrls_tpu_torch.utils.precision import reduced
 from data_mtcars import mtcars_xy
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

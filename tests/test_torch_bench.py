@@ -23,6 +23,7 @@ from bigkrls_tpu.ops.eig import eigensystem as jeigensystem
 from bigkrls_tpu.ops.fused import postkernel_device as jdense
 from bigkrls_tpu.ops.kernels import gauss_kernel as jgauss
 from bigkrls_tpu_torch import bench
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -22,6 +22,7 @@ from bigkrls_tpu_torch import checkpoint as tckpt
 from bigkrls_tpu_torch import model as tmodel
 from bigkrls_tpu_torch.cli import main
 from bigkrls_tpu_torch.ops import adaptive as ta
+from _port_threads import one_blas_thread  # noqa: F401
 
 jred = importlib.import_module("bigkrls_tpu.reducibility")
 tred = importlib.import_module("bigkrls_tpu_torch.reducibility")

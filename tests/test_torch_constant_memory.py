@@ -36,6 +36,7 @@ from bigkrls_tpu.ops import eig as jeig
 from bigkrls_tpu_torch import bench
 from bigkrls_tpu_torch.ops import eig as teig
 from bigkrls_tpu_torch.ops import matvec
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from bigkrls_tpu_torch.ops import kernels, matvec
+from _port_threads import one_blas_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

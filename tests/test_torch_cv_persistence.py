@@ -18,6 +18,7 @@ from bigkrls_tpu_torch import model as tmodel
 from bigkrls_tpu_torch import persistence as tpersist
 from bigkrls_tpu_torch.native import matstore
 from data_mtcars import mtcars_xy
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

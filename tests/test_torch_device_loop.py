@@ -37,6 +37,7 @@ from bigkrls_tpu_torch import lambda_search as tls
 from bigkrls_tpu_torch.ops import fused as tfused
 from bigkrls_tpu_torch.ops import solve as tsolve
 from bigkrls_tpu_torch.types import Eigensystem as TEig
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -15,6 +15,7 @@ import sys
 
 import numpy as np
 import torch
+from _port_threads import one_blas_thread  # noqa: F401
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

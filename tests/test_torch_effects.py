@@ -10,6 +10,7 @@ from bigkrls_tpu.ops import effects as je
 from bigkrls_tpu.ops import kernels as jk
 from bigkrls_tpu_torch.ops import effects as te
 from bigkrls_tpu_torch.ops import kernels as tk
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

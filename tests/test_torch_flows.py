@@ -25,6 +25,7 @@ from bigkrls_tpu_torch import bench
 from bigkrls_tpu_torch.ops import eig as teig
 from bigkrls_tpu_torch.parallel import ring_kernel as tring
 from bigkrls_tpu_torch.parallel.sharded import ShardedTensor
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -14,6 +14,7 @@ from bigkrls_tpu.ops import stats as jstats
 from bigkrls_tpu_torch.ops import _build
 from bigkrls_tpu_torch.ops import kernels as tk
 from bigkrls_tpu_torch.ops import stats as tstats
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -15,6 +15,7 @@ import torch
 
 from bigkrls_tpu.ops import matvec as jmv
 from bigkrls_tpu_torch.ops import matvec as tmv
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

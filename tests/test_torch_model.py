@@ -11,6 +11,7 @@ from bigkrls_tpu_torch import convert
 from bigkrls_tpu_torch import model as tmodel
 from bigkrls_tpu_torch.utils.precision import ieee_fp32
 from data_mtcars import COROLLA_INDEX, COROLLA_KERNEL_GOLDEN, mtcars_xy
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -13,7 +13,9 @@
 
 ``tests/test_torch_multicard_tool.py`` rehearses ``tools/multi_card.py``.
 The workers are this file run as a script (``--moments RANK PORT DIR``);
-they import no JAX."""
+they import no JAX. The ``cuda``-marked test runs on two or more cards
+(per-card span intervals and the copies between cards) and skips
+elsewhere."""
 import json
 import os
 import socket
@@ -25,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _port_threads import one_blas_thread  # noqa: F401
 
 _ROOT = Path(__file__).resolve().parent.parent
 
@@ -296,6 +299,40 @@ def test_moments_hold_seven_blocks_a_card_and_equal_jax(tmp_path):
     assert [g["live"] for g in got] == [LIVE_BLOCKS] * 4
     np.testing.assert_allclose(got[0]["moments"], np.asarray(want),
                                rtol=1e-11)
+
+
+# ---------------------------------------------------------------------------
+# on the cards themselves
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_mesh_fit_spans_are_timed_on_every_card():
+    """On two or more cards, each span of a mesh fit holds one device
+    interval per card, ``device_s`` the longest, and the fit copies bytes
+    between its cards (``bytes_between_cards``). Run on the card with
+    ``python -m pytest --noconftest -p no:randomly -q
+    tests/test_torch_multicard.py -k every_card``."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    import bigkrls_tpu_torch as bt
+    from bigkrls_tpu_torch import bench
+    from bigkrls_tpu_torch.parallel.sharded import make_mesh
+    from bigkrls_tpu_torch.utils import progress
+    cards = [torch.device("cuda", i)
+             for i in range(min(4, torch.cuda.device_count()))]
+    y, X = bench.smoke_data(4096, 6, seed=3)
+    m = bt.fit(y, X, mesh=make_mesh(devices=cards), noisy=False)
+    assert m.eig_path.startswith("adaptive-krylov")
+    log = progress.spans()
+    root = [s for s in log if s.parent is None and s.name == "fit"][-1]
+    spans = [s for s in log if s.call == root.call and s is not root]
+    assert "fit/eigendecomposition/krylov/moments" in [s.path for s in spans]
+    for s in spans:
+        if s.name == "library":      # loading the kernels: host time only
+            continue
+        assert len(s.device_s_by_card) == len(cards), s.path
+        assert s.device_s == max(s.device_s_by_card) >= 0.0, s.path
+    assert sum(s.counters.get("bytes_between_cards", 0) for s in spans) > 0
 
 
 if __name__ == "__main__":

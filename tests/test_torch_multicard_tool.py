@@ -10,6 +10,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from _port_threads import one_blas_thread  # noqa: F401
 
 _ROOT = Path(__file__).resolve().parent.parent
 

@@ -23,6 +23,7 @@ from bigkrls_tpu_torch.parallel import jacobi as tjac
 from bigkrls_tpu_torch.parallel import ring_kernel as tring
 from bigkrls_tpu_torch.parallel import sharded as tsh
 from data_mtcars import mtcars_xy
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

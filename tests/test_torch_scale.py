@@ -12,6 +12,7 @@ import torch
 
 from bigkrls_tpu.ops import eig as jeig
 from bigkrls_tpu_torch.ops import eig as teig
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

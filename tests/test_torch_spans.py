@@ -17,6 +17,7 @@ from bigkrls_tpu_torch.utils.progress import PHASES
 from bigkrls_tpu_torch.ops import solve
 from bigkrls_tpu_torch.parallel.sharded import host_gather, make_mesh, place
 from bigkrls_tpu_torch.utils import progress
+from _port_threads import one_blas_thread  # noqa: F401
 
 tpredict = importlib.import_module("bigkrls_tpu_torch.predict")
 

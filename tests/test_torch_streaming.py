@@ -28,6 +28,7 @@ from bigkrls_tpu_torch.ops import effects as teff
 from bigkrls_tpu_torch.ops import eig as teig
 from bigkrls_tpu_torch.ops import matvec as tmv
 from bigkrls_tpu_torch.utils.memory import DEFAULT_BUDGET, device_memory_budget
+from _port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 
